@@ -295,7 +295,7 @@ def test_combine_hits_with_triangles(cornell_scene):
 
 
 def test_select_rows_matches_gather(pbr_scene):
-    """The one-hot MXU row select replacing the per-bounce
+    """The one-hot matmul row select replacing the per-bounce
     vtx_attr/tri_tangent gathers must match the gather exactly down to
     the documented bf16 exponent floor (residual split parts below
     ~1.2e-38 flush; everything representable survives bitwise), at both
@@ -398,39 +398,48 @@ def _instanced_gltf(tmp_path, n_instances: int) -> str:
     return str(path)
 
 
-def test_instancing_flatten_guardrail(tmp_path):
+def test_instancing_flatten_guardrail(tmp_path, monkeypatch):
     """Instance flattening is bounded: a 500-instance scene whose
     world-space expansion crosses the bound raises a clear error naming
-    the amplification when flattening is FORCED (the reference keeps an
-    IAS, Scene.cpp:1134-1213; tpu_pt flattens by default — the guardrail
-    makes the O(instances x mesh) memory trade explicit instead of
-    detonating). Under the default ``instancing="auto"`` the same load
-    is RESCUED by the pallas_inst instance table instead of raising."""
-    from tpu_pt.scene.gltf import load_gltf
+    the amplification (the reference keeps an IAS, Scene.cpp:1134-1213;
+    tpu_pt flattens — the guardrail makes the O(instances x mesh) memory
+    trade explicit instead of exhausting memory). The default bound
+    comes from the device's memory."""
+    from tpu_pt.scene import gltf
     path = _instanced_gltf(tmp_path, 500)
     with pytest.raises(ValueError, match="instance flattening"):
-        load_gltf(path, max_flat_tris=100, instancing="flatten")
-    # auto: the eligible asset keeps its instances instead of raising —
-    # the unique mesh is ONE triangle, the table carries 500 rows.
-    ws_auto = load_gltf(path, max_flat_tris=100)
-    assert ws_auto.inst is not None and ws_auto.inst.count == 500
-    assert int(np.asarray(ws_auto.geom.tri_valid).sum()) == 1
+        gltf.load_gltf(path, max_flat_tris=100)
     # Raising the bound loads the same file: 500 world-space triangles.
-    ws = load_gltf(path, max_flat_tris=1000)
-    assert ws.inst is None
+    ws = gltf.load_gltf(path, max_flat_tris=1000)
     assert int(np.asarray(ws.geom.tri_valid).sum()) == 500
-    # The env knob raises the bound too.
+    # The default bound is the device memory's share over the bytes per
+    # flattened triangle.
+    per_tri = gltf._BYTES_PER_FLAT_TRI
+    monkeypatch.setattr(gltf, "_device_bytes_limit", lambda: 400 * per_tri)
+    assert gltf.default_max_flat_tris() == int(
+        400 * per_tri * gltf._FLAT_MEMORY_SHARE) // per_tri
+    with pytest.raises(ValueError, match="derived from the device"):
+        gltf.load_gltf(path)
+    monkeypatch.setattr(gltf, "_device_bytes_limit",
+                        lambda: 1000 * per_tri)
+    ws2 = gltf.load_gltf(path)
+    assert int(np.asarray(ws2.geom.tri_valid).sum()) == 500
+
+
+def test_device_bytes_limit_reads_device_or_host():
+    """The guardrail's memory limit: the device's reported bytes_limit,
+    or the host's physical memory for a device that reports none."""
     import os
-    os.environ["TPT_MAX_FLAT_TRIS"] = "1000"
-    try:
-        ws2 = load_gltf(path)
-        assert int(np.asarray(ws2.geom.tri_valid).sum()) == 500
-    finally:
-        del os.environ["TPT_MAX_FLAT_TRIS"]
+    import jax
+    from tpu_pt.scene import gltf
+    stats = jax.local_devices()[0].memory_stats() or {}
+    want = stats.get("bytes_limit") or (os.sysconf("SC_PAGE_SIZE")
+                                        * os.sysconf("SC_PHYS_PAGES"))
+    assert gltf._device_bytes_limit() == want > 0
 
 
 def test_mxu_texture_sampler_matches_gather(pbr_scene):
-    """The per-bounce MXU bilinear pass (_sample_all_textures +
+    """The per-bounce matmul bilinear pass (_sample_all_textures +
     _tex_lookup) matches the 4-tap gather sampler to fp association on
     every texture, wrap mode, and out-of-range UV, srgb on and off —
     including the oversized-texture gather fallback path."""
@@ -800,12 +809,7 @@ def test_forest_instancing(tmp_path):
     import make_gltf_assets
     make_gltf_assets.build_forest(str(tmp_path), n_trees=60)
     from tpu_pt.scene.gltf import load_gltf
-    # Default "auto" picks the instanced contract here: amplification
-    # ~60x at ~59k flattened tris crosses the measured-faster
-    # thresholds (TPT_INST_AUTO_AMP/MIN).
-    ws_auto = load_gltf(str(tmp_path / "forest.gltf"))
-    assert ws_auto.inst is not None and ws_auto.inst.count == 121
-    ws = load_gltf(str(tmp_path / "forest.gltf"), instancing="flatten")
+    ws = load_gltf(str(tmp_path / "forest.gltf"))
     # ground (2) + 60 x (trunk 24 + canopy 960) world triangles.
     assert ws.geom.num_tris == 2 + 60 * (24 + 960)
     v0 = np.asarray(ws.geom.tri_v0)

@@ -1,29 +1,13 @@
-"""Instanced (two-level, IAS-analog) traversal tests.
-
-The ``pallas_inst`` sweep must agree with the world-space flatten: same
-hits, same t (to fp noise), same materials, matching world normals and
-barycentrics, and the whitted image rendered through an instance table
-must match the image rendered from the flattened copy of the same scene.
-CPU runs the kernels in Pallas interpret mode (the correctness path);
-``tools/verify_tpu.py`` case 16 pins the compiled TPU kernel against the
-same reference on hardware.
-"""
+"""Instanced glTF assets: node instances and ``EXT_mesh_gpu_instancing``
+flatten to world space at load, bounded by the memory-derived guardrail."""
 
 import base64
 import json
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
 import tpu_pt
-from tpu_pt import mathlib as ml
-from tpu_pt.camera import Camera
-from tpu_pt.render import CameraArrays
-from tpu_pt.intersect import moller
-from tpu_pt.intersect import pallas_inst as pi
-from tpu_pt.scene.arrays import build_scene_arrays, default_cornell_light
-from tpu_pt.vec3 import V3
 
 
 def _cube():
@@ -34,150 +18,6 @@ def _cube():
         [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
         [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int64)
     return v, f
-
-
-def _tetra():
-    v = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]],
-                 np.float32) - 0.25
-    f = np.array([[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]], np.int64)
-    return v, f
-
-
-def _trs(tx, scale, axis, ang):
-    m = np.eye(4)
-    c, s = np.cos(ang), np.sin(ang)
-    rots = {0: np.array([[1, 0, 0], [0, c, -s], [0, s, c]]),
-            1: np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]),
-            2: np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])}
-    m[:3, :3] = rots[axis] * np.asarray(scale)
-    m[:3, 3] = tx
-    return m
-
-
-_MATS = [dict(diffuse=(0.8, 0.2, 0.2), emission=(0, 0, 0), roughness=0.5,
-              metallic=0.0, ior=1.5, bsdf=0),
-         dict(diffuse=(0.2, 0.8, 0.2), emission=(0, 0, 0), roughness=0.5,
-              metallic=0.0, ior=1.5, bsdf=0)]
-
-
-@pytest.fixture(scope="module")
-def inst_pair():
-    """(unique geom, instance table, flattened geom, instance list)."""
-    rng = np.random.default_rng(7)
-    cv, cf = _cube()
-    tv, tf = _tetra()
-    verts = np.concatenate([cv, tv])
-    faces = np.concatenate([cf, tf + len(cv)])
-    mat_ids = np.concatenate([np.zeros(len(cf), np.int64),
-                              np.ones(len(tf), np.int64)])
-    geom = build_scene_arrays(verts, faces, mat_ids, _MATS,
-                              light=default_cornell_light())
-    mesh_ranges = [(0, len(cf)), (len(cf), len(cf) + len(tf))]
-    mesh_aabbs = [(cv.min(0), cv.max(0)), (tv.min(0), tv.max(0))]
-
-    instances, flat_v, flat_f, flat_m = [], [], [], []
-    nv = 0
-    for i in range(9):
-        slot = i % 2
-        if i == 8:  # one MIRRORED instance (negative determinant)
-            scale = [-1.0, 1.0, 1.0]
-        elif i % 3 == 0:
-            scale = (0.4 + rng.random(3)).tolist()    # non-uniform
-        else:
-            scale = [0.5 + 0.5 * rng.random()] * 3
-        m = _trs(rng.random(3) * 8 - 4, scale, i % 3, rng.random() * 6)
-        instances.append((slot, m))
-        mv, mf = (cv, cf) if slot == 0 else (tv, tf)
-        flat_v.append(ml.transform_points(m.astype(np.float32), mv))
-        flat_f.append(mf + nv)
-        nv += len(mv)
-        flat_m.append(np.full(len(mf), slot, np.int64))
-    fgeom = build_scene_arrays(np.concatenate(flat_v),
-                               np.concatenate(flat_f),
-                               np.concatenate(flat_m), _MATS,
-                               light=default_cornell_light())
-    table = pi.build_instance_table(mesh_ranges, mesh_aabbs, instances)
-    return geom, table, fgeom, instances
-
-
-def _aimed_rays(instances, n, seed=3):
-    """Rays from a shell around the scene aimed at random instances."""
-    rng = np.random.default_rng(seed)
-    targets = np.stack([m[:3, 3] for _, m in instances])
-    o = rng.normal(size=(n, 3))
-    o = o / np.linalg.norm(o, axis=1, keepdims=True) * 12
-    at = targets[rng.integers(0, len(targets), n)]
-    d = at - o + rng.normal(size=(n, 3)) * 0.3
-    d = d / np.linalg.norm(d, axis=1, keepdims=True)
-    O = V3(*[jnp.asarray(o[:, k], jnp.float32) for k in range(3)])
-    D = V3(*[jnp.asarray(d[:, k], jnp.float32) for k in range(3)])
-    return O, D
-
-
-def test_closest_matches_flatten(inst_pair):
-    geom, table, fgeom, instances = inst_pair
-    O, D = _aimed_rays(instances, 512)
-    hi = pi.intersect_closest(geom, table, O, D)
-    hf = moller.intersect_closest(fgeom, O, D)
-    mask_i = np.asarray(hi.hit)
-    mask_f = np.asarray(hf.hit)
-    assert mask_i.sum() > 200          # the workload actually hits
-    assert (mask_i == mask_f).all()
-    m = mask_i
-    np.testing.assert_allclose(np.asarray(hi.t)[m], np.asarray(hf.t)[m],
-                               rtol=0, atol=2e-4)
-    assert (np.asarray(hi.mat)[m] == np.asarray(hf.mat)[m]).all()
-    # World geometric normals align INCLUDING SIGN (the mirrored
-    # instance is the point: cross(Me1, Me2) = det(M) (M^-T) cross(e1,
-    # e2), and build_instance_table folds sign(det) into the normal
-    # matrix — a signless |dot| here would let an orientation bug
-    # through).
-    ni = np.stack([np.asarray(c) for c in
-                   (hi.normal.x, hi.normal.y, hi.normal.z)], 1)
-    nf = np.stack([np.asarray(c) for c in
-                   (hf.normal.x, hf.normal.y, hf.normal.z)], 1)
-    dots = (ni[m] * nf[m]).sum(1)
-    assert dots.min() > 0.9999
-    # Barycentrics agree (same unique-mesh triangle parameterization).
-    np.testing.assert_allclose(np.asarray(hi.u)[m], np.asarray(hf.u)[m],
-                               atol=5e-4)
-    np.testing.assert_allclose(np.asarray(hi.v)[m], np.asarray(hf.v)[m],
-                               atol=5e-4)
-    # The winning instance's mesh range contains the winning triangle.
-    inst = np.asarray(hi.inst)[m]
-    tri = np.asarray(hi.tri)[m]
-    rows = np.asarray(table.rows)
-    slots = np.array([s for s, _ in instances])
-    ranges = np.array(table.mesh_ranges)
-    lo, hi_r = ranges[slots[inst], 0], ranges[slots[inst], 1]
-    assert ((tri >= lo) & (tri < hi_r)).all()
-
-
-def test_occluded_matches_flatten(inst_pair):
-    geom, table, fgeom, instances = inst_pair
-    O, D = _aimed_rays(instances, 512, seed=11)
-    for tmax_v in (4.0, 14.0):
-        tmax = jnp.full((512,), tmax_v)
-        oi = np.asarray(pi.intersect_occluded(geom, table, O, D, tmax))
-        of = np.asarray(moller.intersect_occluded(fgeom, O, D, tmax))
-        assert (oi == of).all()
-
-
-def test_refractive_instances_pass_shadow_rays():
-    """Glass meshes do not occlude through the instanced sweep either
-    (``pathTracerPrograms.cu:672-681`` parity via the packed column)."""
-    cv, cf = _cube()
-    mats = [dict(diffuse=(1, 1, 1), emission=(0, 0, 0), roughness=0.0,
-                 metallic=0.0, ior=1.5, bsdf=2)]   # BSDF_REFRACTION
-    geom = build_scene_arrays(cv, cf, np.zeros(len(cf), np.int64), mats,
-                              light=default_cornell_light())
-    table = pi.build_instance_table(
-        [(0, len(cf))], [(cv.min(0), cv.max(0))],
-        [(0, _trs([0, 0, 0], [1, 1, 1], 0, 0.0))])
-    o = V3(jnp.asarray([-5.0]), jnp.asarray([0.0]), jnp.asarray([0.0]))
-    d = V3(jnp.asarray([1.0]), jnp.asarray([0.0]), jnp.asarray([0.0]))
-    occ = pi.intersect_occluded(geom, table, o, d, jnp.asarray([10.0]))
-    assert not bool(occ[0])
 
 
 def _write_instanced_city(tmp_path, n_inst=12, indexed=True):
@@ -234,97 +74,18 @@ def _write_instanced_city(tmp_path, n_inst=12, indexed=True):
     return str(path)
 
 
-def test_whitted_image_instanced_matches_flatten(tmp_path):
-    """The SAME asset loaded instanced vs flattened renders the same
-    whitted image (smooth normals, shadows, point lights): the full
-    shading path — one-hot instance normal/tangent transforms included
-    — agrees with the world-space build to rendering tolerance."""
-    from tpu_pt.scene.gltf import load_gltf
-    from tpu_pt.whitted import render_whitted_wavefront
-    path = _write_instanced_city(tmp_path)
-    ws_f = load_gltf(path, instancing="flatten")
-    ws_i = load_gltf(path, instancing="instanced")
-    assert ws_f.inst is None and ws_i.inst is not None
-    assert ws_i.inst.count == 12
-    cam = CameraArrays.from_camera(Camera(
-        eye=np.array([0.0, 7.0, 14.0], np.float32),
-        lookat=np.array([0.0, 0.0, 0.0], np.float32), fov_y=45.0))
-    cfg = tpu_pt.RenderConfig(width=40, height=30, spp=1, max_depth=2,
-                              background=(0.2, 0.3, 0.5))
-    rad_f, _ = render_whitted_wavefront(ws_f, cam, cfg, 0, 40 * 30, 0)
-    rad_i, _ = render_whitted_wavefront(ws_i, cam, cfg, 0, 40 * 30, 0)
-    a = np.asarray(rad_f).reshape(30, 40, 3)
-    b = np.asarray(rad_i).reshape(30, 40, 3)
-    assert np.isfinite(b).all()
-    rmse = float(np.sqrt(np.mean((a - b) ** 2)))
-    assert rmse < 2e-3, rmse
-    # And the scene is actually non-trivial: cubes cover real pixels
-    # (~14% of the frame at this camera).
-    assert (np.abs(a - np.array([0.2, 0.3, 0.5])).max(-1) > 0.05).mean() \
-        > 0.08
-
-
-def test_sharded_instanced_matches_plain(tmp_path):
-    """The instanced whitted step inside ``shard_map`` (8x1 tile mesh
-    on the virtual-device conftest) is bitwise the plain frame — the
-    pallas_inst kernels compose with the multi-device tile sharding
-    exactly like the other backends (test_dist's whitted case,
-    instanced edition)."""
-    from tpu_pt.scene.gltf import load_gltf
-    from tpu_pt.whitted import render_whitted_frame
-    from tpu_pt import dist
-    from tpu_pt.render import init_accum
-    path = _write_instanced_city(tmp_path, n_inst=6)
-    ws = load_gltf(path, instancing="instanced")
-    cam = CameraArrays.from_camera(Camera(
-        eye=np.array([0.0, 7.0, 14.0], np.float32),
-        lookat=np.array([0.0, 0.0, 0.0], np.float32), fov_y=45.0))
-    cfg = tpu_pt.RenderConfig(width=32, height=24, spp=1, max_depth=2,
-                              background=(0.2, 0.3, 0.5))
-    accum = init_accum(cfg)
-    _, img_plain, _ = render_whitted_frame(ws, cam, cfg, 0, accum)
-    mesh = dist.device_mesh(8, 1)
-    step = dist.make_sharded_renderer(ws, cfg, mesh)
-    accum_s = dist.init_accum_sharded(cfg, mesh)
-    _, img_shard, _ = step(cam, 0, accum_s)
-    assert np.array_equal(np.asarray(img_plain), np.asarray(img_shard))
-
-
 def test_path_tracer_load_scene_never_rescues(tmp_path, monkeypatch):
-    """``tpu_pt.load_scene`` (the PATH TRACER's loader) forces the
-    flatten contract: an over-guardrail glTF still raises the loud
-    guardrail error instead of silently handing the path tracer
-    mesh-space unique geometry with the instance transforms dropped
-    (the whitted pipeline is the instanced contract's consumer)."""
+    """``tpu_pt.load_scene`` (the path tracer's loader) flattens glTF
+    instances under the guardrail derived from the device's memory: with
+    a device limit too small for the flattened tables, the load raises
+    the guardrail error instead of exhausting memory."""
+    from tpu_pt.scene import gltf
     path = _write_instanced_city(tmp_path)
-    monkeypatch.setenv("TPT_MAX_FLAT_TRIS", "10")
+    monkeypatch.setattr(gltf, "_device_bytes_limit",
+                        lambda: 20 * gltf._BYTES_PER_FLAT_TRI)
+    assert gltf.default_max_flat_tris() == 10
     with pytest.raises(ValueError, match="instance flattening"):
         tpu_pt.load_scene(path)
-
-
-def test_instanced_load_ignores_flatten_bound(tmp_path):
-    """The flatten guardrail does not apply to instanced emission —
-    nothing is flattened, so a bound below the UNIQUE mesh size must
-    not spuriously raise (the unique rows have their own bound,
-    TPT_INST_ROWS)."""
-    from tpu_pt.scene.gltf import load_gltf
-    path = _write_instanced_city(tmp_path)
-    ws = load_gltf(path, max_flat_tris=10, instancing="instanced")
-    assert ws.inst is not None and ws.inst.count == 12
-    assert int(np.asarray(ws.geom.tri_valid).sum()) == 12
-
-
-def test_inst_rows_two_level_matches_gather():
-    """The large-table (hi, lo) split select is exactly the gather."""
-    rng = np.random.default_rng(2)
-    tbl = jnp.asarray(rng.normal(size=(4096, 9)).astype(np.float32))
-    ids = jnp.asarray(rng.integers(0, 4096, 1024).astype(np.int32))
-    got = np.asarray(pi._inst_rows(tbl, ids))
-    want = np.asarray(tbl)[np.asarray(ids)]
-    assert np.array_equal(got, want)
-    # And the small-table direct path too.
-    got_s = np.asarray(pi._inst_rows(tbl[:512], ids % 512))
-    assert np.array_equal(got_s, np.asarray(tbl)[:512][np.asarray(ids) % 512])
 
 
 def _write_gpu_instanced(tmp_path, n=40):
@@ -369,124 +130,22 @@ def _write_gpu_instanced(tmp_path, n=40):
 
 
 def test_ext_mesh_gpu_instancing(tmp_path):
-    """EXT_mesh_gpu_instancing expands into instance records consumed
-    by BOTH geometry contracts: the flatten materializes n world
-    triangles at the composed T*R*S placements, the instanced contract
-    keeps one unique triangle + an n-row table — and they agree."""
+    """EXT_mesh_gpu_instancing expands into instance records that the
+    loader flattens: n world triangles at the composed T*R*S
+    placements."""
     from tpu_pt.scene.gltf import load_gltf
     path, tr, ang, sc = _write_gpu_instanced(tmp_path, n=40)
-    ws_f = load_gltf(path, instancing="flatten")
-    assert int(np.asarray(ws_f.geom.tri_valid).sum()) == 40
+    ws = load_gltf(path)
+    assert int(np.asarray(ws.geom.tri_valid).sum()) == 40
     # Each flattened v0 is the instance's T * R * S applied to (0,0,0)
     # = the translation itself.
-    v0 = np.asarray(ws_f.geom.tri_v0)[:40]
+    v0 = np.asarray(ws.geom.tri_v0)[:40]
     np.testing.assert_allclose(np.sort(v0[:, 0]), np.sort(tr[:, 0]),
                                atol=1e-5)
-    ws_i = load_gltf(path, instancing="instanced")
-    assert ws_i.inst is not None and ws_i.inst.count == 40
-    assert int(np.asarray(ws_i.geom.tri_valid).sum()) == 1
-    # Closest-hit agreement between contracts over aimed rays.
-    insts = [(0, np.eye(4)) for _ in range(40)]
-    for k in range(40):
-        m = np.eye(4)
-        m[:3, 3] = tr[k]
-        insts[k] = (0, m)
-    O, D = _aimed_rays(insts, 256, seed=4)
-    hi_ = pi.intersect_closest(ws_i.geom, ws_i.inst, O, D)
-    hf_ = moller.intersect_closest(ws_f.geom, O, D)
-    assert (np.asarray(hi_.hit) == np.asarray(hf_.hit)).all()
-    m_ = np.asarray(hi_.hit)
-    if m_.any():
-        np.testing.assert_allclose(np.asarray(hi_.t)[m_],
-                                   np.asarray(hf_.t)[m_], atol=2e-4)
-
-
-def test_alpha_shadow_instanced_matches_flatten(assets_dir):
-    """Textured-alpha scenes are instancing-eligible: the fractional
-    shadow split builds SUBSET instance tables (opaque boolean sweep +
-    alpha closest-hit march through pallas_inst), and the rendered
-    image matches the flattened contract."""
-    from tpu_pt.scene.gltf import load_gltf
-    from tpu_pt.whitted import render_whitted_wavefront
-    path = str(assets_dir / "alpha_shadow.gltf")
-    ws_f = load_gltf(path, instancing="flatten")
-    ws_i = load_gltf(path, instancing="instanced")
-    assert ws_i.inst is not None and ws_i.alpha_occ is not None
-    assert ws_i.alpha_occ.inst is not None
-    assert ws_i.alpha_occ.occ_inst is not None
-    cam_t = ws_f.camera
-    if cam_t:
-        eye, lookat, up, fov = cam_t
-        cam = CameraArrays.from_camera(Camera(
-            eye=np.asarray(eye, np.float32),
-            lookat=np.asarray(lookat, np.float32),
-            up=np.asarray(up, np.float32), fov_y=fov))
-    else:
-        lo, hi = ws_f.world_bounds()
-        c = 0.5 * (lo + hi)
-        ext = float(np.linalg.norm(hi - lo))
-        cam = CameraArrays.from_camera(Camera(
-            eye=(c + np.array([0.6, 0.8, 1.0]) * ext).astype(np.float32),
-            lookat=c.astype(np.float32), fov_y=40.0))
-    cfg = tpu_pt.RenderConfig(width=40, height=30, spp=1, max_depth=3,
-                              background=(0.1, 0.15, 0.25))
-    a, _ = render_whitted_wavefront(ws_f, cam, cfg, 0, 40 * 30, 0)
-    b, _ = render_whitted_wavefront(ws_i, cam, cfg, 0, 40 * 30, 0)
-    a = np.asarray(a).reshape(30, 40, 3)
-    b = np.asarray(b).reshape(30, 40, 3)
-    assert np.isfinite(b).all()
-    rmse = float(np.sqrt(np.mean((a - b) ** 2)))
-    assert rmse < 2e-3, rmse
-    # The scene's alpha shadows are actually in frame: images deviate
-    # from the flat background somewhere.
-    assert (np.abs(a - np.array([0.1, 0.15, 0.25])).max(-1)
-            > 0.05).mean() > 0.05
-
-
-def test_foliage_instanced_matches_flatten(assets_dir):
-    """The combined workload the instanced contract exists for:
-    alpha-MASKED leaf cards on instanced trees (assets/foliage.gltf —
-    601 instances, 34 unique tris, 12 of them alpha-class). Both
-    contracts render the same image, leaves included."""
-    from tpu_pt.scene.gltf import load_gltf
-    from tpu_pt.whitted import render_whitted_wavefront
-    path = str(assets_dir / "foliage.gltf")
-    ws_f = load_gltf(path, instancing="flatten")
-    ws_i = load_gltf(path, instancing="instanced")
-    assert ws_i.inst is not None and ws_i.inst.count == 601
-    assert ws_i.alpha_occ is not None
-    assert ws_i.alpha_occ.inst is not None
-    lo, hi = ws_f.world_bounds()
-    c = 0.5 * (lo + hi)
-    ext = float(np.linalg.norm(hi - lo))
-    cam = CameraArrays.from_camera(Camera(
-        eye=(c + np.array([0.25, 0.18, 0.35]) * ext).astype(np.float32),
-        lookat=c.astype(np.float32), fov_y=45.0))
-    cfg = tpu_pt.RenderConfig(width=48, height=36, spp=1, max_depth=2,
-                              background=(0.5, 0.7, 0.9))
-    a, _ = render_whitted_wavefront(ws_f, cam, cfg, 0, 48 * 36, 0)
-    b, _ = render_whitted_wavefront(ws_i, cam, cfg, 0, 48 * 36, 0)
-    a = np.asarray(a).reshape(36, 48, 3)
-    b = np.asarray(b).reshape(36, 48, 3)
-    assert np.isfinite(b).all()
-    rmse = float(np.sqrt(np.mean((a - b) ** 2)))
-    assert rmse < 2e-3, rmse
-    # Leaf cards are visible (green-dominant pixels in frame).
-    green = ((a[..., 1] > a[..., 0]) & (a[..., 1] > a[..., 2])).mean()
-    assert green > 0.03, green
-
-
-def test_forced_instancing_rejects_ineligible(tmp_path):
-    """extras primitives make an asset ineligible; forcing raises."""
-    from tpu_pt.scene.gltf import load_gltf
-    path = _write_instanced_city(tmp_path)
-    doc = json.loads(open(path).read())
-    doc["extras"] = {"tpu_pt_primitives": [dict(
-        type="sphere", center=[0, 0, 0], radius=1.0, material=0)]}
-    p2 = tmp_path / "city_prims.gltf"
-    p2.write_text(json.dumps(doc))
-    with pytest.raises(ValueError, match="ineligible"):
-        load_gltf(str(p2), instancing="instanced")
-    # auto quietly flattens it instead.
-    ws = load_gltf(str(p2))
-    assert ws.inst is None
+    # The edges carry the rotation and scale: e1 = R S (1, 0, 0).
+    e1 = np.asarray(ws.geom.tri_e1)[:40]
+    order = np.argsort(v0[:, 0])
+    k = np.argsort(tr[:, 0])
+    want = np.stack([np.cos(ang) * sc[:, 0], np.zeros_like(ang),
+                     -np.sin(ang) * sc[:, 0]], 1)
+    np.testing.assert_allclose(e1[order], want[k], atol=1e-5)

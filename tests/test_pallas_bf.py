@@ -1,15 +1,37 @@
-"""Pallas brute-force intersector vs the jnp reference (interpret mode on
-CPU; the same kernels run compiled on TPU)."""
+"""The dense Pallas brute-force intersector (``pallas_dense``) against the
+jnp reference, and renders through it. The kernels run in the Pallas
+interpreter here; chip_smoke.py runs them compiled on a GPU."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tpu_pt import rng
-from tpu_pt.intersect import moller, pallas_ablations, pallas_bf
+from tpu_pt.intersect import moller, pallas_dense
 from tpu_pt.render import CameraArrays, camera_rays
 import tpu_pt
-from tpu_pt.vec3 import V3
+
+
+def closest(scene, o, d, **kw):
+    return pallas_dense.intersect_closest(scene, o, d, interpret=True, **kw)
+
+
+def occluded(scene, o, d, tmax, **kw):
+    return pallas_dense.intersect_occluded(scene, o, d, tmax,
+                                           interpret=True, **kw)
+
+
+def use_kernel(monkeypatch):
+    """Route the renderer's intersector choice to the interpreted kernel,
+    bound as the path tracer binds it (``want_uv=False``)."""
+    import tpu_pt.render
+    monkeypatch.setattr(
+        tpu_pt.render, "get_intersectors",
+        lambda s, c, want_uv=False: (
+            functools.partial(closest, s, want_uv=want_uv),
+            functools.partial(occluded, s)))
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +47,7 @@ def rays(cornell_scene):
 def test_closest_matches_reference(cornell_scene, rays):
     o, d = rays
     ref = moller.intersect_closest(cornell_scene, o, d)
-    out = pallas_bf.intersect_closest(cornell_scene, o, d)
+    out = closest(cornell_scene, o, d)
     np.testing.assert_array_equal(np.asarray(ref.hit), np.asarray(out.hit))
     np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(out.tri))
     np.testing.assert_allclose(np.asarray(ref.t), np.asarray(out.t),
@@ -35,7 +57,7 @@ def test_closest_matches_reference(cornell_scene, rays):
 def test_closest_matches_reference_mixed(mixed_scene, rays):
     o, d = rays
     ref = moller.intersect_closest(mixed_scene, o, d)
-    out = pallas_bf.intersect_closest(mixed_scene, o, d)
+    out = closest(mixed_scene, o, d)
     np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(out.tri))
     np.testing.assert_allclose(np.asarray(ref.t), np.asarray(out.t),
                                rtol=1e-6)
@@ -52,7 +74,7 @@ def test_occluded_matches_reference(mixed_scene, rays):
     ldir = to_l / jnp.maximum(dist, 1e-6)[..., None]
     tmax = dist - 0.01
     ref = moller.intersect_occluded(mixed_scene, p, ldir, tmax)
-    out = pallas_bf.intersect_occluded(mixed_scene, p, ldir, tmax)
+    out = occluded(mixed_scene, p, ldir, tmax)
     np.testing.assert_array_equal(np.asarray(ref), np.asarray(out))
 
 
@@ -61,110 +83,31 @@ def test_occluded_quirk_mode(mixed_scene, rays):
     tmax = jnp.full((o.shape[0],), 1e6)
     ref = moller.intersect_occluded(mixed_scene, o, d, tmax,
                                     quirk_first_hit=True)
-    out = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax,
-                                       quirk_first_hit=True)
+    out = occluded(mixed_scene, o, d, tmax, quirk_first_hit=True)
     np.testing.assert_array_equal(np.asarray(ref), np.asarray(out))
 
 
 def test_nonaligned_ray_count(cornell_scene):
-    # N not a multiple of RAY_TILE exercises the padding path.
+    # N not a multiple of BLOCK_R exercises the padding path.
     o = jnp.zeros((333, 3))
     d = jnp.broadcast_to(jnp.asarray([0.0, 1.0, 0.0]), (333, 3))
     o = o.at[:, 0].set(278.0)
     o = o.at[:, 2].set(279.0)
-    out = pallas_bf.intersect_closest(cornell_scene, o, d)
+    out = closest(cornell_scene, o, d)
     ref = moller.intersect_closest(cornell_scene, o, d)
     np.testing.assert_allclose(np.asarray(ref.t), np.asarray(out.t),
                                rtol=1e-6)
 
 
-def test_multi_slab_matches_single(mixed_scene, rays, monkeypatch):
-    """Scenes larger than TRI_SLAB take the clustered path (Morton
-    reorder, 2-level AABB culling, ray sorting), in slabs combined outside
-    the kernel; shrinking every size knob must not change any result."""
+def test_lean_single_matches_full(mixed_scene, rays):
+    """``want_uv=False`` (the path tracer's binding) drops only the
+    barycentric carry: every other field equals the ``want_uv=True``
+    call exactly, u/v read as zeros, and the uv call's barycentrics
+    match moller's."""
     o, d = rays
-    ref = pallas_bf.intersect_closest(mixed_scene, o, d)
-    ref_occ = pallas_bf.intersect_occluded(
-        mixed_scene, o, d, jnp.full((o.shape[0],), 500.0))
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 64)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    out = pallas_bf.intersect_closest(mixed_scene, o, d)
-    occ = pallas_bf.intersect_occluded(
-        mixed_scene, o, d, jnp.full((o.shape[0],), 500.0))
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(out.tri))
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(out.t))
-    np.testing.assert_array_equal(np.asarray(ref.mat), np.asarray(out.mat))
-    np.testing.assert_array_equal(np.asarray(ref_occ), np.asarray(occ))
-
-
-@pytest.mark.parametrize("key", ["oct", "dir6", "near", "cand"])
-def test_sort_key_invariance(mixed_scene, rays, monkeypatch, key):
-    """The per-round coherence key only permutes rays before the clustered
-    sweep: every TPT_SORT_KEY mode must give bitwise-identical hits to the
-    dir12 default. 'near' additionally exercises the chained-slab
-    nearest-entry grouping, including the trailing-partial-slab pad
-    (512 rows over 384-row slabs -> 2 slabs, 16 sboxes padded)."""
-    o, d = rays
-    tmax = jnp.full((o.shape[0],), 500.0)
-    monkeypatch.delenv("TPT_SORT_KEY", raising=False)
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 8)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 384)
-    ref = pallas_bf.intersect_closest(mixed_scene, o, d)
-    ref_occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    monkeypatch.setenv("TPT_SORT_KEY", key)
-    out = pallas_bf.intersect_closest(mixed_scene, o, d)
-    occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(out.tri))
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(out.t))
-    np.testing.assert_array_equal(np.asarray(ref.mat), np.asarray(out.mat))
-    np.testing.assert_array_equal(np.asarray(ref_occ), np.asarray(occ))
-
-
-def test_inkernel_build_matches_outside(mixed_scene, rays, monkeypatch):
-    """The in-kernel candidate build (TPT_INKB ablation, default off —
-    measured dead end, see pallas_bf._inkb) must agree
-    with the XLA-side ``super_candidates`` schedule on every consumed
-    field — the lists are the same SET, only near-first vs box-index
-    ordered, and guard="none" sweeps are order-insensitive."""
-    o, d = rays
-    tmax = jnp.full((o.shape[0],), 500.0)
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 384)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 8)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    monkeypatch.setenv("TPT_INKB", "0")
-    ref = pallas_bf.intersect_closest(mixed_scene, o, d)
-    ref_lean = pallas_bf.intersect_closest(mixed_scene, o, d,
-                                           want_uv=False)
-    ref_occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    monkeypatch.setenv("TPT_INKB", "1")
-    out = pallas_bf.intersect_closest(mixed_scene, o, d)
-    out_lean = pallas_bf.intersect_closest(mixed_scene, o, d,
-                                           want_uv=False)
-    occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    for a, b in ((ref, out), (ref_lean, out_lean)):
-        np.testing.assert_array_equal(np.asarray(a.tri), np.asarray(b.tri))
-        np.testing.assert_array_equal(np.asarray(a.t), np.asarray(b.t))
-        np.testing.assert_array_equal(np.asarray(a.mat), np.asarray(b.mat))
-    np.testing.assert_array_equal(np.asarray(ref_occ), np.asarray(occ))
-
-
-def test_lean_single_matches_full(mixed_scene, rays, monkeypatch):
-    """Small scenes route through the lean (t, id) kernel + one-hot
-    attribute resolve (want_uv included since round 4, barycentrics
-    recovered from the resolved edge-function rows); every consumed
-    field must match the full in-sweep-select kernel (TPT_LEAN_UV=0)
-    exactly, u/v to fp association."""
-    o, d = rays
-    monkeypatch.setenv("TPT_LEAN_UV", "0")
-    full = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=True)
-    monkeypatch.setenv("TPT_LEAN_UV", "1")
-    lean = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    lean_uv = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=True)
+    full = closest(mixed_scene, o, d, want_uv=True)
+    lean = closest(mixed_scene, o, d, want_uv=False)
+    ref = moller.intersect_closest(mixed_scene, o, d)
     np.testing.assert_array_equal(np.asarray(full.hit), np.asarray(lean.hit))
     np.testing.assert_array_equal(np.asarray(full.tri), np.asarray(lean.tri))
     np.testing.assert_array_equal(np.asarray(full.t), np.asarray(lean.t))
@@ -174,256 +117,23 @@ def test_lean_single_matches_full(mixed_scene, rays, monkeypatch):
             np.asarray(getattr(full.normal, c)),
             np.asarray(getattr(lean.normal, c)))
     assert not np.asarray(lean.u).any() and not np.asarray(lean.v).any()
-    # The lean-uv variant agrees with the in-kernel winner reduces to
-    # fp association (same formula, association may differ post-fusion).
-    np.testing.assert_array_equal(np.asarray(full.tri),
-                                  np.asarray(lean_uv.tri))
-    np.testing.assert_allclose(np.asarray(lean_uv.u), np.asarray(full.u),
-                               rtol=0, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(lean_uv.v), np.asarray(full.v),
-                               rtol=0, atol=1e-5)
+    hit = np.asarray(ref.hit)
+    np.testing.assert_allclose(np.asarray(full.u)[hit],
+                               np.asarray(ref.u)[hit], rtol=0, atol=2e-4)
+    np.testing.assert_allclose(np.asarray(full.v)[hit],
+                               np.asarray(ref.v)[hit], rtol=0, atol=2e-4)
 
 
-def test_lean_clustered_matches_full(mixed_scene, rays, monkeypatch):
-    """The big-scene lean carry + two-level one-hot resolve must agree
-    with the non-lean clustered kernels (TPT_LEAN_BIG=0) bitwise."""
-    o, d = rays
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 64)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    monkeypatch.setenv("TPT_LEAN_BIG", "0")
-    full = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    monkeypatch.setenv("TPT_LEAN_BIG", "1")
-    lean = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    np.testing.assert_array_equal(np.asarray(full.hit), np.asarray(lean.hit))
-    np.testing.assert_array_equal(np.asarray(full.tri), np.asarray(lean.tri))
-    np.testing.assert_array_equal(np.asarray(full.t), np.asarray(lean.t))
-    np.testing.assert_array_equal(np.asarray(full.mat), np.asarray(lean.mat))
-    for c in "xyz":
-        np.testing.assert_array_equal(
-            np.asarray(getattr(full.normal, c)),
-            np.asarray(getattr(lean.normal, c)))
-
-
-def test_binned_matches_reference(mixed_scene, rays, monkeypatch):
-    """Pair-binned scheduler vs the Möller reference, with k small enough
-    to force overflow lanes through the clustered completion pass."""
-    o, d = rays
-    ref = moller.intersect_closest(mixed_scene, o, d)
-    tmax = jnp.full((o.shape[0],), 500.0)
-    ref_occ = moller.intersect_occluded(mixed_scene, o, d, tmax)
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 128)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 128)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 32)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    out = pallas_ablations.intersect_closest_binned(mixed_scene, o, d, k=2)
-    occ = pallas_ablations.intersect_occluded_binned(mixed_scene, o, d, tmax, k=2)
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(out.tri))
-    np.testing.assert_allclose(np.asarray(ref.t), np.asarray(out.t),
-                               rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(ref_occ), np.asarray(occ))
-
-
-def test_fused_closest_nee_matches_separate(mixed_scene, rays):
-    """The fused closest+NEE kernel must agree with the two-kernel path on
-    every lane where its occlusion bit is defined (hit lanes)."""
-    o, d = rays
-    n = o.shape[0]
-    lz1 = jnp.linspace(0.05, 0.95, n)
-    lz2 = jnp.linspace(0.9, 0.1, n)
-    hit, occ = pallas_bf.intersect_closest_nee(mixed_scene, o, d, lz1, lz2)
-    ref_hit = pallas_bf.intersect_closest(mixed_scene, o, d)
-    np.testing.assert_array_equal(np.asarray(ref_hit.tri), np.asarray(hit.tri))
-    np.testing.assert_allclose(np.asarray(ref_hit.t), np.asarray(hit.t))
-    # Reference shadow rays from the hit points (as _nee builds them).
-    light = mixed_scene.light
-    p = np.asarray((o + np.asarray(hit.t)[:, None] * d))
-    lp = (np.asarray(light.corner)[None] + np.outer(lz1, light.v1)
-          + np.outer(lz2, light.v2))
-    to_l = lp - p
-    dist = np.linalg.norm(to_l, axis=-1)
-    ldir = to_l / np.maximum(dist, 1e-9)[:, None]
-    ref_occ = pallas_bf.intersect_occluded(
-        mixed_scene, jnp.asarray(p), jnp.asarray(ldir),
-        jnp.asarray(dist - 0.01))
-    # Grazing shadow rays (common in the axis-aligned Cornell geometry)
-    # can flip on the ~1-ulp rsqrt-vs-sqrt normalization difference and on
-    # the separate path's finer triangle-block partition (both paths are
-    # self-consistent; only near-ties differ).
-    m = np.asarray(hit.hit)
-    agree = np.asarray(ref_occ)[m] == np.asarray(occ)[m]
-    assert agree.mean() > 0.99, f"occlusion agreement {agree.mean()}"
-
-
-def test_pred_scheduling_bitwise_invariant(mixed_scene, monkeypatch):
-    """Landing-slab-prediction ordering (the pixelq pred carry) only
-    permutes rays before the clustered sweep: the rendered image must be
-    bitwise identical with TPT_PRED=0. Shrunk slabs force the clustered
-    lean path (where prediction activates) on the mixed Cornell scene."""
+def test_render_with_pallas_matches_bruteforce(cornell_scene, monkeypatch):
     from tpu_pt.render import render_wavefront
-    monkeypatch.delenv("TPT_SORT_KEY", raising=False)
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 128)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 8)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 256)
     cam = CameraArrays.from_camera(tpu_pt.cornell_default_camera())
-    cfg = tpu_pt.RenderConfig(width=16, height=16, spp=4, max_depth=4,
+    cfg = tpu_pt.RenderConfig(width=32, height=32, spp=2, max_depth=3,
                               use_direct_lighting=True,
                               use_importance_sampling=True,
-                              intersector="pallas", scheduler="pixelq")
-    monkeypatch.setenv("TPT_PRED", "0")
-    ra, _ = render_wavefront(mixed_scene, cam, cfg, 0, 16 * 16, 0)
-    monkeypatch.setenv("TPT_PRED", "1")
-    rb, _ = render_wavefront(mixed_scene, cam, cfg, 0, 16 * 16, 0)
-    np.testing.assert_array_equal(np.asarray(ra), np.asarray(rb))
-
-
-def test_rotated_chain_exact_with_wrong_predictions(mixed_scene, rays,
-                                                    monkeypatch):
-    """The rotated chain (TPT_SEED) is work-scheduling only: ADVERSARIAL
-    predictions (every slab id wrong, unknown, or out of range) must
-    still produce the same hits as TPT_SEED=0 — every tile visits all S
-    slabs in SOME order, so a bad prediction costs work, never
-    correctness."""
-    o, d = rays
-    monkeypatch.delenv("TPT_SORT_KEY", raising=False)
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 128)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 8)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 256)
-    from tpu_pt.intersect import SLAB_UNKNOWN
-    n = o.shape[0]
-    preds = {
-        "cycled": jnp.arange(n, dtype=jnp.int32) % 7,   # mostly wrong
-        "unknown": jnp.full((n,), SLAB_UNKNOWN, jnp.int32),
-        "clamped": jnp.full((n,), 10 ** 6, jnp.int32),  # out of range
-    }
-    monkeypatch.setenv("TPT_SEED", "0")
-    ref = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False,
-                                      pred=preds["cycled"])
-    monkeypatch.setenv("TPT_SEED", "1")
-    for name, p in preds.items():
-        out, slab = pallas_bf.intersect_closest(
-            mixed_scene, o, d, want_uv=False, pred=p, want_slab=True)
-        np.testing.assert_array_equal(np.asarray(ref.tri),
-                                      np.asarray(out.tri), err_msg=name)
-        np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(out.t),
-                                      err_msg=name)
-        np.testing.assert_array_equal(np.asarray(ref.mat),
-                                      np.asarray(out.mat), err_msg=name)
-        # Landing slabs of real hits stay derivable from the global id.
-        srows = pallas_bf._clustered_slab_rows(
-            pallas_bf.pack_tris_clustered(mixed_scene)[0].shape[0])
-        hitm = np.asarray(out.hit)
-        assert (np.asarray(slab)[hitm] < 10 ** 6 // srows + 2).all()
-
-
-def test_rotated_chain_render_bitwise_invariant(mixed_scene, monkeypatch):
-    """Whole-frame pixelq render: TPT_SEED (rotated chain) on/off must be
-    bitwise identical (the real renderer feeds real history
-    predictions)."""
-    from tpu_pt.render import render_wavefront
-    monkeypatch.delenv("TPT_SORT_KEY", raising=False)
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 128)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 8)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 256)
-    cam = CameraArrays.from_camera(tpu_pt.cornell_default_camera())
-    cfg = tpu_pt.RenderConfig(width=16, height=16, spp=4, max_depth=4,
-                              use_direct_lighting=True,
-                              use_importance_sampling=True,
-                              intersector="pallas", scheduler="pixelq")
-    monkeypatch.setenv("TPT_SEED", "0")
-    ra, _ = render_wavefront(mixed_scene, cam, cfg, 0, 16 * 16, 0)
-    monkeypatch.setenv("TPT_SEED", "1")
-    rb, _ = render_wavefront(mixed_scene, cam, cfg, 0, 16 * 16, 0)
-    np.testing.assert_array_equal(np.asarray(ra), np.asarray(rb))
-
-
-@pytest.mark.parametrize("guard", ["1", "0"])
-def test_streamed_matches_chained(mixed_scene, rays, monkeypatch, guard):
-    """TPT_STREAM keeps the scene in HBM and DMA-streams each tile's
-    candidate clusters through a VMEM ring: hits and occlusion must be
-    bitwise identical to the chained-slab path, with and without the
-    per-candidate running-best guard (TPT_STREAM_GUARD)."""
-    o, d = rays
-    tmax = jnp.full((o.shape[0],), 500.0)
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 64)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    monkeypatch.setenv("TPT_STREAM", "0")
-    ref = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    ref_occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    monkeypatch.setenv("TPT_STREAM", "1")
-    monkeypatch.setenv("TPT_STREAM_GUARD", guard)
-    out = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    np.testing.assert_array_equal(np.asarray(ref.hit), np.asarray(out.hit))
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(out.tri))
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(out.t))
-    np.testing.assert_array_equal(np.asarray(ref.mat), np.asarray(out.mat))
-    for c in "xyz":
-        np.testing.assert_array_equal(
-            np.asarray(getattr(ref.normal, c)),
-            np.asarray(getattr(out.normal, c)))
-    np.testing.assert_array_equal(np.asarray(ref_occ), np.asarray(occ))
-
-
-@pytest.mark.parametrize("pair_mult,k_out,group,lvl",
-                         [(12, 32, 8, 1), (12, 32, 1, 1), (12, 48, 32, 1),
-                          (1, 2, 8, 1), (12, 32, 1, 2), (12, 32, 8, 2),
-                          (12, 3, 1, 2)])
-def test_cbin_matches_chained(mixed_scene, rays, monkeypatch, pair_mult,
-                              k_out, group, lvl):
-    """TPT_CBIN groups rays BY cluster (per-ray-group work lists) and must
-    produce the same hits as the chained tile-union path, at any group
-    size (g=1 is the exact per-ray schedule; g>1 shares a conservative
-    interval-tested list across adjacent lanes). The tiny (pair_mult=1,
-    k_out=2) case starves the static caps so most rays go through the
-    parked-completion pass — overflow must stay exact."""
-    o, d = rays
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 64)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    tmax = jnp.full((o.shape[0],), 2.5)
-    ref = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    ref_occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    monkeypatch.setenv("TPT_CBIN", "1")
-    monkeypatch.setattr(pallas_ablations, "CBIN_PAIR_MULT", pair_mult)
-    monkeypatch.setattr(pallas_ablations, "CBIN_K_OUT", k_out)
-    monkeypatch.setattr(pallas_ablations, "CBIN_GROUP", group)
-    # lvl=2 with fan 2 exercises the two-level parent/child expansion
-    # on the tiny test scene (4 superclusters -> 2 parents); the k_out=3
-    # case starves the child cap so two-level overflow completion runs.
-    monkeypatch.setattr(pallas_ablations, "CBIN_LVL", lvl)
-    monkeypatch.setattr(pallas_ablations, "CBIN_FAN", 2)
-    monkeypatch.setattr(pallas_ablations, "CBIN_K1", 3)
-    out = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    np.testing.assert_array_equal(np.asarray(ref.hit), np.asarray(out.hit))
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(out.t))
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(out.tri))
-    np.testing.assert_array_equal(np.asarray(ref.mat), np.asarray(out.mat))
-    for c in "xyz":
-        np.testing.assert_array_equal(
-            np.asarray(getattr(ref.normal, c)),
-            np.asarray(getattr(out.normal, c)))
-    np.testing.assert_array_equal(np.asarray(ref_occ), np.asarray(occ))
-
-
-def test_render_with_pallas_matches_bruteforce(cornell_scene):
-    from tpu_pt.render import render_wavefront
-    cam = CameraArrays.from_camera(tpu_pt.cornell_default_camera())
-    cfg_a = tpu_pt.RenderConfig(width=32, height=32, spp=2, max_depth=3,
-                                use_direct_lighting=True,
-                                use_importance_sampling=True,
-                                intersector="bruteforce")
-    cfg_b = cfg_a.with_(intersector="pallas")
-    ra, _ = render_wavefront(cornell_scene, cam, cfg_a, 0, 32 * 32, 0)
-    rb, _ = render_wavefront(cornell_scene, cam, cfg_b, 0, 32 * 32, 0)
+                              intersector="bruteforce")
+    ra, _ = render_wavefront(cornell_scene, cam, cfg, 0, 32 * 32, 0)
+    use_kernel(monkeypatch)
+    rb, _ = render_wavefront(cornell_scene, cam, cfg, 0, 32 * 32, 0)
     # The backends use different intersection algebra (Möller vs
     # plane+edge), so a handful of samples near geometric boundaries
     # (shadow tmax, RR threshold) legitimately land ~1e-4 apart.
@@ -431,74 +141,26 @@ def test_render_with_pallas_matches_bruteforce(cornell_scene):
     assert np.mean(np.abs(np.asarray(ra) - np.asarray(rb))) < 1e-6
 
 
-def test_deep_render_cross_backend_agreement(mixed_scene):
-    """Regression: at 8 bounces on the mixed-BSDF scene, pallas and
-    bruteforce must agree tightly. Caught a real bug: the jnp backend's
-    mask-matmul normal/material select ran at default (bf16) MXU precision,
-    perturbing normals by ~1e-3 and diverging whole paths."""
+def test_deep_render_cross_backend_agreement(mixed_scene, monkeypatch):
+    """Regression: at 8 bounces on the mixed-BSDF scene, the kernel and
+    bruteforce must agree tightly. Caught a real bug once: the jnp
+    backend's mask-matmul normal/material select ran at default (bf16)
+    precision, perturbing normals by ~1e-3 and diverging whole paths."""
     from tpu_pt.render import render_wavefront
     cam = CameraArrays.from_camera(tpu_pt.cornell_default_camera())
     cfg_a = tpu_pt.RenderConfig(width=64, height=64, spp=4, max_depth=8,
                                 use_direct_lighting=True,
                                 use_importance_sampling=True,
                                 intersector="bruteforce")
-    cfg_b = cfg_a.with_(intersector="pallas", scheduler="regen")
+    cfg_b = cfg_a.with_(scheduler="regen")
     ra, _ = render_wavefront(mixed_scene, cam, cfg_a, 0, 64 * 64, 0)
+    use_kernel(monkeypatch)
     rb, _ = render_wavefront(mixed_scene, cam, cfg_b, 0, 64 * 64, 0)
     # Cross-formula (Möller vs plane+edge) boundary flips: rare samples
     # may diverge, but the image-mean error must stay tiny.
     diff = np.abs(np.asarray(ra) - np.asarray(rb))
     assert np.mean(diff) < 1e-5, f"mean {np.mean(diff)}"
     assert np.quantile(diff, 0.999) < 1e-3, f"p999 {np.quantile(diff, .999)}"
-
-
-def test_trim_single_block_arithmetic(monkeypatch):
-    """_trim_single must return 8-aligned equal blocks covering the true
-    triangle count for any count, and never exceed the packed rows."""
-    import types
-
-    monkeypatch.delenv("TPT_FINE_TB", raising=False)
-    for t_real in [1, 7, 8, 32, 428, 500, 512, 520, 2041, 4000, 8192]:
-        rows512 = max(512, -(-t_real // 512) * 512)
-        packed = jnp.zeros((rows512, 16), jnp.float32)
-        scene = types.SimpleNamespace(num_tris=t_real)
-        trimmed, tb = pallas_bf._trim_single(scene, packed)
-        rows = trimmed.shape[0]
-        assert rows >= t_real, (t_real, rows)
-        assert rows <= rows512
-        assert rows % tb == 0, (t_real, rows, tb)
-        assert tb <= pallas_bf.TRI_BLOCK // 2
-        assert tb % 8 == 0 or rows < 8, (t_real, tb)
-        # Lean/occlusion call sites pass hb=TRI_BLOCK: same invariants
-        # at the wider cap.
-        trimmed, tb = pallas_bf._trim_single(scene, packed,
-                                             hb=pallas_bf.TRI_BLOCK)
-        rows = trimmed.shape[0]
-        assert rows >= t_real and rows <= rows512
-        assert rows % tb == 0, (t_real, rows, tb)
-        assert tb <= pallas_bf.TRI_BLOCK
-        assert tb % 8 == 0 or rows < 8, (t_real, tb)
-
-
-def test_trim_rows_env_validation(monkeypatch):
-    """TPT_FINE_TB must be rejected unless a positive multiple of 8, and
-    must not affect full-carry (hb=None) call sites."""
-    import types
-
-    import pytest
-
-    scene = types.SimpleNamespace(num_tris=428)
-    packed = jnp.zeros((512, 16), jnp.float32)
-    for bad in ["0", "-8", "100"]:
-        monkeypatch.setenv("TPT_FINE_TB", bad)
-        with pytest.raises(ValueError):
-            pallas_bf._trim_single(scene, packed, hb=pallas_bf.TRI_BLOCK)
-        # hb=None (full-carry) ignores the knob entirely.
-        _, tb = pallas_bf._trim_single(scene, packed)
-        assert tb <= pallas_bf.TRI_BLOCK // 2
-    monkeypatch.setenv("TPT_FINE_TB", "64")
-    _, tb = pallas_bf._trim_single(scene, packed, hb=pallas_bf.TRI_BLOCK)
-    assert tb <= 64
 
 
 def test_trace_pixel_matches_renderer(mixed_scene):
@@ -521,77 +183,3 @@ def test_trace_pixel_matches_renderer(mixed_scene):
     np.testing.assert_allclose(
         total, np.asarray(radiance)[y * 16 + x], rtol=1e-5, atol=1e-7)
     assert "d0:" in debug.format_trace(recs)
-
-
-def test_grp_matches_tiled(mixed_scene, rays, monkeypatch):
-    """The transposed-group path (TPT_GRP: per-8-ray candidate lists,
-    rays in sublanes x cluster tris in lanes) must produce the same hits
-    and occlusion as the tiled clustered path — the lists are exact
-    per-group supersets of each ray's needs, so min-t results agree."""
-    o, d = rays
-    tmax = jnp.full((o.shape[0],), 500.0)
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 384)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 8)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    ref = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    ref_occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    monkeypatch.setenv("TPT_GRP", "1")
-    out = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(out.tri))
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(out.t))
-    np.testing.assert_array_equal(np.asarray(ref.mat), np.asarray(out.mat))
-    np.testing.assert_array_equal(np.asarray(ref_occ), np.asarray(occ))
-
-
-def test_grp_bundled_matches_tiled(mixed_scene, rays, monkeypatch):
-    """TPT_GRP=2 (bundled-lockstep group kernels) is a pure scheduling
-    restructure of TPT_GRP=1 — identical hits/occlusion to the tiled
-    path (masked lockstep steps never accept, visit order per group is
-    unchanged)."""
-    o, d = rays
-    tmax = jnp.full((o.shape[0],), 500.0)
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 384)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 8)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    ref = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    ref_occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    monkeypatch.setenv("TPT_GRP", "2")
-    out = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=False)
-    occ = pallas_bf.intersect_occluded(mixed_scene, o, d, tmax)
-    np.testing.assert_array_equal(np.asarray(ref.tri), np.asarray(out.tri))
-    np.testing.assert_array_equal(np.asarray(ref.t), np.asarray(out.t))
-    np.testing.assert_array_equal(np.asarray(ref_occ), np.asarray(occ))
-
-
-def test_clustered_uv_matches_reference(mixed_scene, rays, monkeypatch):
-    """want_uv=True through the CLUSTERED (non-lean) kernels — the path
-    a big glTF/whitted scene takes — produces moller's barycentrics.
-    Regression guard for the round-4 NaN class: the winner select-
-    reduces must stay NaN-free with degenerate/padding rows in blocks
-    (the mixed scene's padded slab rows exercise exactly that)."""
-    o, d = rays
-    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 256)
-    monkeypatch.setattr(pallas_bf, "CLUSTER", 64)
-    monkeypatch.setattr(pallas_bf, "SUPER", 2)
-    ref = moller.intersect_closest(mixed_scene, o, d)
-    hit = np.asarray(ref.hit)
-    # Both big-scene uv paths: the lean clustered kernels + packed
-    # resolve with edge-function rows (default) and the full-carry
-    # clustered kernels' in-sweep select-reduces (TPT_LEAN_UV=0).
-    for lean_uv in ("1", "0"):
-        monkeypatch.setenv("TPT_LEAN_UV", lean_uv)
-        out = pallas_bf.intersect_closest(mixed_scene, o, d, want_uv=True)
-        np.testing.assert_array_equal(np.asarray(ref.tri),
-                                      np.asarray(out.tri))
-        assert np.isfinite(np.asarray(out.u)).all()
-        assert np.isfinite(np.asarray(out.v)).all()
-        np.testing.assert_allclose(np.asarray(out.u)[hit],
-                                   np.asarray(ref.u)[hit],
-                                   rtol=0, atol=2e-4)
-        np.testing.assert_allclose(np.asarray(out.v)[hit],
-                                   np.asarray(ref.v)[hit],
-                                   rtol=0, atol=2e-4)

@@ -19,7 +19,7 @@ toggle the way the reference's does:
 - light-source fraction (near-saturated pixels in the ceiling region).
 
 Writes the renders + ``report.md`` to docs/reference_comparison/.
-Run on TPU (a few minutes/mode at 512x512); CPU auto-shrinks for smoke.
+Run on the GPU (CMP_SIZE/CMP_SPP/CMP_FRAMES shrink it for a smoke run).
 """
 
 import json
@@ -84,12 +84,10 @@ def main():
     import tpu_pt
     from tpu_pt import film
     from tpu_pt.render import CameraArrays, render_frame, init_accum
-    from tpu_pt.profiling import device_barrier
 
-    on_tpu = jax.default_backend() == "tpu"
-    size = int(os.environ.get("CMP_SIZE", 512 if on_tpu else 96))
-    spp = int(os.environ.get("CMP_SPP", 16 if on_tpu else 4))
-    frames = int(os.environ.get("CMP_FRAMES", 16 if on_tpu else 2))
+    size = int(os.environ.get("CMP_SIZE", 512))
+    spp = int(os.environ.get("CMP_SPP", 16))
+    frames = int(os.environ.get("CMP_FRAMES", 16))
 
     obj = os.path.join(REPO, "assets", "cornell_box_monkey.obj")
     if not os.path.exists(obj):
@@ -112,7 +110,7 @@ def main():
         t0 = time.perf_counter()
         for f in range(frames):
             accum, img, _ = render_frame(scene, cam, cfg, f, accum)
-        device_barrier(img)
+        jax.block_until_ready(img)
         host = tpu_pt.image_to_host(img)
         slug = name.replace(", ", "_").replace(" + ", "_").replace(" ", "")
         film.write_png(os.path.join(outdir, f"ours_{slug}.png"), host)

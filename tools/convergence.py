@@ -17,7 +17,7 @@ concentrates where the cosine factor varies (grazing geometry), and the
 metallic/refractive BSDFs bypass hemisphere sampling entirely — so no
 IS-vs-uniform ordering is asserted, just reported.
 
-Run: python tools/convergence.py   (TPU ~2 min; CPU shrinks sizes)
+Run: python tools/convergence.py   (CONV_* env knobs shrink it)
 Knobs: CONV_SIZE (256), CONV_REF_FRAMES (64), CONV_FRAMES (16),
 CONV_SPP (16). Prints one JSON line per mode + a summary line.
 """
@@ -37,15 +37,14 @@ def main():
     from tpu_pt.render import CameraArrays, render_frame, init_accum
 
     backend = jax.default_backend()
-    on_tpu = backend == "tpu"
     scene = tpu_pt.load_scene(os.path.join(REPO, "assets",
                                            "cornell_box_mixed.obj"))
     cam = CameraArrays.from_camera(tpu_pt.cornell_default_camera())
 
-    size = int(os.environ.get("CONV_SIZE", 256 if on_tpu else 64))
-    spp = int(os.environ.get("CONV_SPP", 16 if on_tpu else 4))
-    ref_frames = int(os.environ.get("CONV_REF_FRAMES", 64 if on_tpu else 8))
-    frames = int(os.environ.get("CONV_FRAMES", 16 if on_tpu else 4))
+    size = int(os.environ.get("CONV_SIZE", 256))
+    spp = int(os.environ.get("CONV_SPP", 16))
+    ref_frames = int(os.environ.get("CONV_REF_FRAMES", 64))
+    frames = int(os.environ.get("CONV_FRAMES", 16))
 
     modes = [
         ("IS+NEE", True, True),

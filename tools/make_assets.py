@@ -14,6 +14,8 @@ Scenes:
                             short block (exercises all three BSDFs)
 - cornell_box_sphere.obj    + ~2k-tri diffuse sphere (monkey stand-in)
 - big_mesh.obj (--big)      ~100k-tri displaced sphere for BVH benchmarks
+- mesh_N.obj (--sweep)      4k-64k-tri displaced spheres: the sweep that
+                            sets the dense-kernel/LBVH crossover
 """
 
 from __future__ import annotations
@@ -236,12 +238,19 @@ Kd 0.0 0.66 0.0
 """
 
 
+# Sphere resolutions of the crossover sweep (2 * N * (N - 1) triangles).
+SWEEP_RES = (45, 64, 90, 128, 180)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(__file__), "..", "assets"))
     ap.add_argument("--big", action="store_true",
                     help="also write big_mesh.obj (~100k tris)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also write mesh_N.obj for N in "
+                         f"{SWEEP_RES} (4k-64k tris)")
     ap.add_argument("--huge", action="store_true",
                     help="also write huge_mesh.obj (~1M tris)")
     args = ap.parse_args()
@@ -324,6 +333,13 @@ def main():
         sv, st = displaced_sphere(278, 220, 280, 160, 224, 224)
         w.add_tris("GreyDiffuse", sv, st)
         w.write(os.path.join(out, "big_mesh.obj"), "cornell.mtl")
+
+    for n in SWEEP_RES if args.sweep else ():
+        w = ObjWriter()
+        cornell_shell(w)
+        sv, st = displaced_sphere(278, 220, 280, 160, n, n)
+        w.add_tris("GreyDiffuse", sv, st)
+        w.write(os.path.join(out, f"mesh_{n}.obj"), "cornell.mtl")
 
     if args.huge:
         w = ObjWriter()

@@ -72,13 +72,6 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                         "lighting for .gltf/.glb")
     p.add_argument("--background", type=float, nargs=3,
                    default=[0.0, 0.0, 0.0])
-    p.add_argument("--instancing", default=None,
-                   choices=["auto", "flatten", "instanced"],
-                   help="glTF geometry contract: flatten instances to "
-                        "world space (default under the memory "
-                        "guardrail) or keep an instance table (the "
-                        "two-level pallas_inst sweep; auto rescues "
-                        "over-guardrail assets)")
 
 
 def _build(args):
@@ -136,7 +129,7 @@ def _render_whitted_cli(args) -> int:
     from tpu_pt.render import CameraArrays, init_accum, image_to_host
     from tpu_pt.camera import Camera
 
-    ws = load_gltf(args.scene, instancing=args.instancing)
+    ws = load_gltf(args.scene)
     frame_start = 0
     if args.resume:
         from tpu_pt.checkpoint import load_checkpoint
@@ -156,9 +149,7 @@ def _render_whitted_cli(args) -> int:
                             up=np.asarray(up, np.float32),
                             fov_y=fov, aspect=args.width / args.height)
         else:
-            # Default camera: frame the scene's WORLD bounds (instanced
-            # scenes' geom is mesh-space — world_bounds aggregates the
-            # instance boxes).
+            # Default camera: frame the scene's world bounds.
             lo, hi = ws.world_bounds()
             c = 0.5 * (lo + hi)
             ext = float(np.linalg.norm(hi - lo))
@@ -285,24 +276,29 @@ def cmd_render(args) -> int:
     return 0
 
 
-def cmd_bench(args) -> int:
-    """Run the headline benchmark honoring the CLI's scene/size/spp/
-    depth/scheduler flags (argparse defaults pass through untouched so
-    a bare ``tpu-pt bench`` keeps the BASELINE.json configuration)."""
+def bench_argv(args) -> list[str]:
+    """``bench.py`` arguments for the CLI's flags. Only flags changed from
+    the CLI's defaults pass on, so a bare ``tpu-pt bench`` measures
+    bench.py's headline configuration."""
+    argv = ["--scheduler", args.scheduler, "--intersector", args.intersector]
     if args.scene:
-        os.environ.setdefault("BENCH_SCENE", os.path.abspath(args.scene))
+        argv += ["--scene", os.path.abspath(args.scene)]
     if args.width != 512:                   # non-default CLI width
-        os.environ.setdefault("BENCH_SIZE", str(args.width))
-    if args.spp != 128:
-        os.environ.setdefault("BENCH_SPP", str(args.spp))
-    if args.depth != 4:
-        os.environ.setdefault("BENCH_DEPTH", str(args.depth))
-    if args.scheduler != "pixelq":
-        os.environ.setdefault("BENCH_SCHED", args.scheduler)
-    if args.frames != 1:
-        os.environ.setdefault("BENCH_FRAMES", str(args.frames))
-    import bench  # repo-root bench script
-    bench.main()
+        argv += ["--size", str(args.width)]
+    for flag, value, default in (("--spp", args.spp, 128),
+                                 ("--depth", args.depth, 4),
+                                 ("--frames", args.frames, 1)):
+        if value != default:
+            argv += [flag, str(value)]
+    return argv
+
+
+def cmd_bench(args) -> int:
+    """Run the headline benchmark (the repo-root ``bench.py``)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import bench
+    bench.main(bench_argv(args))
     return 0
 
 

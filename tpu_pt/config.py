@@ -65,28 +65,14 @@ class RenderConfig:
                                 # larger frames stream items through it
     bounces_per_round: int = 1  # trace steps per work-queue round (regen):
                                 # >1 accumulates contributions in registers
-                                # and scatters once per round. Measured on
-                                # v5e Cornell: the ~29% idle-lane cost of
-                                # k=2 exactly cancels the scatter savings
-                                # (34.7 vs 35.5 Mrays/s), so default 1;
-                                # scenes with longer mean paths may differ.
+                                # and scatters once per round, at the cost
+                                # of lanes idling once their path ends.
     samples_per_item: int = 12  # pixelq scheduler: samples per work item
                                 # (clamped to spp). Larger = fewer slot
                                 # flushes + smaller drain scatter; smaller
                                 # = shorter frame tail (the last wave is
                                 # bounded by the unluckiest item's
                                 # samples_per_item x max_depth rounds).
-                                # v5e Cornell sweep (1024^2, 16 spp):
-                                # 2->54.6, 8->63.2, 10->65.1, 12->66.7,
-                                # 14->61.1, 16->55.3 Mrays/s.
-    fused_nee: bool = False     # trace the NEE shadow ray inside the
-                                # closest-hit Pallas kernel (one pass over
-                                # the resident tris). Measured v5e Cornell:
-                                # a net loss in every variant (61.9 at
-                                # tb=256 vs 63.2 unfused; bigger tiles blow
-                                # scoped VMEM; raising the VMEM limit kills
-                                # pipelining, 31.6) — launch overhead is
-                                # cheaper than the tile-granularity cost.
     ray_chunk: int = 8192
     tri_block: int = 512
     spp_chunk: int = 1          # samples traced per scan step

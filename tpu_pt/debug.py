@@ -15,7 +15,7 @@ import numpy as np
 from . import rng
 from . import vec3 as v3
 from .config import RenderConfig
-from .intersect import get_fused_closest_nee, get_intersectors
+from .intersect import get_intersectors
 from .render import (CameraArrays, DONE_REASON_NAMES, _bounce, camera_rays)
 from .scene.arrays import SceneArrays
 
@@ -40,7 +40,6 @@ def trace_pixel(scene: SceneArrays, cam: CameraArrays, cfg: RenderConfig,
     import jax.numpy as jnp
 
     closest_fn, occluded_fn = get_intersectors(scene, cfg, want_uv=False)
-    fused_fn = get_fused_closest_nee(scene, cfg)
     pix = jnp.asarray([y * cfg.width + x], jnp.uint32)
     samp = jnp.asarray([sample], jnp.uint32)
     frame_u = jnp.uint32(frame)
@@ -50,12 +49,11 @@ def trace_pixel(scene: SceneArrays, cam: CameraArrays, cfg: RenderConfig,
     atten = v3.V3.ones((1,))
 
     # One jit specialization serves every depth (depth rides in as data),
-    # so the replay compiles once even on TPU.
+    # so the replay compiles once.
     @jax.jit
     def bounce(origin, direction, atten, depth):
         return _bounce(scene, cfg, closest_fn, occluded_fn, pix, samp,
-                       frame_u, origin, direction, atten, depth,
-                       fused_fn=fused_fn)
+                       frame_u, origin, direction, atten, depth)
 
     records: list[dict] = []
     for depth in range(cfg.max_depth + 1):

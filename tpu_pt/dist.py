@@ -1,16 +1,21 @@
 """Multi-chip rendering over a device mesh.
 
-TPU-native replacement for the reference's multi-GPU scaffolding: the 8x4
+The replacement for the reference's multi-GPU scaffolding: the 8x4
 round-robin tile assignment of ``StaticWorkDistribution``
 (``sutil/WorkDistribution.h:34-90``) becomes row-tile sharding of the frame
 over a ``tile`` mesh axis, and the ZERO_COPY/CUDA_P2P frame assembly modes of
-``CUDAOutputBuffer`` (``sutil/CUDAOutputBuffer.h:45-51``) become XLA ICI
-collectives: samples are additionally sharded over an ``spp`` axis and
-combined with ``psum`` (BASELINE.json config 5). The accumulation buffer
+``CUDAOutputBuffer`` (``sutil/CUDAOutputBuffer.h:45-51``) become XLA
+collectives (NCCL between the cards of a host): samples are additionally
+sharded over an ``spp`` axis and combined with ``psum`` (BASELINE.json
+config 5). The cards of a host reach each other all to all at one rate,
+so the mesh is a plain reshape of the device list. The accumulation buffer
 stays sharded and device-resident across frames.
 
-Because the RNG is counter-based, an (n_tile x n_spp)-sharded render is
-bitwise identical to the single-chip render of the same (pixel, sample) set.
+Because the RNG is counter-based, an (n_tile x n_spp)-sharded render
+traces the same (pixel, sample) set as the single-device render. A
+tile-only mesh gives the single-device accumulator bitwise on the GPU
+(``chip_smoke.py`` phases d and g check it); an spp mesh's ``psum``
+reorders each pixel's sample mean.
 """
 
 from __future__ import annotations
@@ -30,14 +35,14 @@ from .scene.arrays import SceneArrays
 def init_multihost(coordinator_address: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None) -> None:
-    """Join a multi-host render job (the DCN seam, SURVEY §5.8).
+    """Join a multi-host render job (SURVEY §5.8).
 
-    TPU-native replacement for the reference's single-host P2P/ZERO_COPY
-    frame assembly (``sutil/CUDAOutputBuffer.h:45-51``): instead of peering
-    GPUs over PCIe, every host's chips join one global ``jax.distributed``
-    job and the frame is sharded over a process-spanning mesh (see
-    :func:`multihost_mesh`). On TPU pods the arguments are auto-detected
-    from the environment; for CPU tests pass them explicitly. Idempotent.
+    Extends the reference's single-host P2P/ZERO_COPY frame assembly
+    (``sutil/CUDAOutputBuffer.h:45-51``) across hosts: every host's
+    devices join one global ``jax.distributed`` job and the frame is
+    sharded over a process-spanning mesh (see :func:`multihost_mesh`).
+    Pass the coordinator address (``host:port``), process count and this
+    process's id explicitly. Idempotent.
     """
     # Probe the distributed client directly: jax.process_count() would
     # itself initialize the XLA backend, which must not happen before
@@ -53,21 +58,22 @@ def init_multihost(coordinator_address: str | None = None,
 
 
 def multihost_mesh(n_spp: int = 1) -> Mesh:
-    """A (tile, spp) mesh spanning processes: tile over DCN, spp over ICI.
+    """A (tile, spp) mesh spanning processes: tile across hosts, spp
+    within one.
 
     Tiles are embarrassingly parallel (each device renders its own pixel
     rows; the only cross-tile traffic is the per-frame stats psum), so the
-    tile axis goes on the slow outer network — one process == one or more
-    tile rows. The spp axis carries the per-pixel ``psum`` of sample means
-    every frame, so it stays inside a process on ICI. With one process
-    this degrades to :func:`device_mesh`'s layout.
+    tile axis goes on the slow network between hosts — one process == one
+    or more tile rows. The spp axis carries the per-pixel ``psum`` of
+    sample means every frame, so it stays inside a process, between the
+    cards of one host. With one process this degrades to
+    :func:`device_mesh`'s layout.
     """
     from jax.experimental import mesh_utils
     n_proc = jax.process_count()
     local = jax.local_device_count()
     assert local % n_spp == 0, (local, n_spp)
-    # process_is_granule: one process == one DCN node. (TPU pods would
-    # group by slice_index instead; CPU/test processes have no slices.)
+    # process_is_granule: one process == one host.
     dev_array = mesh_utils.create_hybrid_device_mesh(
         (local // n_spp, n_spp), (n_proc, 1), process_is_granule=True)
     return Mesh(dev_array, ("tile", "spp"))
@@ -161,7 +167,7 @@ def make_sharded_renderer(scene, cfg: RenderConfig, mesh: Mesh,
 
     pixels_per_tile = cfg.width * cfg.height // n_tile
 
-    def step(cam: CameraArrays, frame_idx, accum):
+    def step(scene, cam: CameraArrays, frame_idx, accum):
         body = partial(_render_block, scene, cam, cfg_local, frame_idx,
                        n_spp, pixels_per_tile, wavefront_fn)
         # check_vma=False: the intersection scans init their carries from
@@ -176,7 +182,12 @@ def make_sharded_renderer(scene, cfg: RenderConfig, mesh: Mesh,
         )
         return sharded(accum)
 
-    return jax.jit(step, donate_argnums=(2,))
+    # The scene is an argument of the compiled step, placed once on every
+    # device of the mesh: closed over, its tables would be constants of
+    # the program, and XLA would fold the scene-derived arithmetic on the
+    # host, rounding differently from the device code of ``render_frame``.
+    scene = jax.device_put(scene, NamedSharding(mesh, P()))
+    return partial(jax.jit(step, donate_argnums=(3,)), scene)
 
 
 def init_accum_sharded(cfg: RenderConfig, mesh: Mesh) -> jnp.ndarray:

@@ -1,6 +1,6 @@
 """Film: progressive accumulation, sRGB tonemapping, image IO, RMSE.
 
-TPU-native equivalent of the reference's accumulation + presentation path:
+The equivalent of the reference's accumulation + presentation path:
 - progressive exponential-mean accumulation (``pathTracerPrograms.cu:803-811``)
 - sRGB tonemap + 8-bit quantization ``make_color``/``toSRGB``
   (``cuda/helpers.h:35-62``)

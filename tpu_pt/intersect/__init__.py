@@ -1,22 +1,17 @@
 """Intersection backends.
 
 ``get_intersectors`` picks the backend per config:
-- ``bruteforce``: chunked jnp Möller-Trumbore (always available, any device)
-- ``pallas``: fused Pallas TPU kernel of the same dense test
+- ``bruteforce``: chunked jnp Möller-Trumbore (any device; the reference)
+- ``pallas``: the dense Pallas kernel of the same test (GPU only,
+  ``pallas_dense``)
 - ``bvh``: LBVH build + traversal for large meshes
-- ``auto``: pallas on TPU when available, else bruteforce; bvh once the
-  triangle count crosses its crossover.
+- ``auto``: ``bvh`` once the triangle count crosses the device's
+  crossover, else ``pallas`` on a GPU and ``bruteforce`` elsewhere.
 """
 
 from __future__ import annotations
 
 from functools import partial
-
-# Landing-slab sentinel shared by the prediction-ordered scheduler
-# (render.py pred carry) and the pallas intersector ("no prediction"
-# in, "slab not recoverable / miss" out). Far above any chained-slab
-# count, int32-safe.
-SLAB_UNKNOWN = 1 << 30
 
 import jax
 
@@ -27,52 +22,23 @@ from .moller import Hit, intersect_closest, intersect_occluded
 __all__ = ["Hit", "intersect_closest", "intersect_occluded",
            "get_intersectors"]
 
-# Dense all-pairs testing beats BVH traversal below these triangle counts.
-# The jnp traversal is gather-bound (~6 ns/element on TPU), so the slabbed
-# Pallas brute force wins by ~10x even at 100k tris on TPU hardware; on CPU
-# the chunked jnp sweep loses to the BVH much earlier.
-BVH_CROSSOVER_TRIS = 4096            # CPU (bruteforce vs lbvh)
-TPU_BVH_CROSSOVER_TRIS = 1 << 20     # TPU (pallas vs lbvh)
-
-
-def _available(mod: str) -> bool:
-    import importlib.util
-    return importlib.util.find_spec(f"tpu_pt.intersect.{mod}") is not None
+# Padded triangle counts above which the LBVH beats the dense sweep.
+# GPU: the Pallas kernel against the LBVH, whole frames on an H100
+# (PERF.md): the kernel wins at 32,640 padded triangles (0.65x the
+# LBVH's frame time), loses at 64,512 (1.07x); log-interpolated, they
+# meet near 59k. CPU: the jnp sweep against the LBVH.
+GPU_BVH_CROSSOVER_TRIS = 57344
+BVH_CROSSOVER_TRIS = 4096
 
 
 def _resolve(scene: SceneArrays, cfg: RenderConfig) -> str:
     if cfg.intersector != "auto":
         return cfg.intersector
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if on_tpu and _available("pallas_bf"):
-        if (scene.num_tris_padded > TPU_BVH_CROSSOVER_TRIS
-                and scene.bvh is not None):
-            return "bvh"
-        return "pallas"
-    if scene.num_tris_padded > BVH_CROSSOVER_TRIS and scene.bvh is not None:
+    on_gpu = jax.default_backend() == "gpu"
+    crossover = GPU_BVH_CROSSOVER_TRIS if on_gpu else BVH_CROSSOVER_TRIS
+    if scene.num_tris_padded > crossover and scene.bvh is not None:
         return "bvh"
-    return "bruteforce"
-
-
-def get_fused_closest_nee(scene: SceneArrays, cfg: RenderConfig):
-    """Fused closest-hit + NEE-occlusion kernel, or None.
-
-    Only the Pallas backend implements the fusion (one pass over the
-    VMEM-resident triangles serves both the radiance and the shadow ray);
-    the quirk occlusion mode keeps the two-kernel path."""
-    if (not cfg.fused_nee or _resolve(scene, cfg) != "pallas"
-            or scene.light is None or cfg.quirks.occlusion_first_hit_only
-            or (scene.prims is not None and scene.prims.count)
-            or (scene.curves is not None and scene.curves.count)):
-        return None    # the fused kernel knows nothing of analytic prims
-    from . import pallas_bf
-    if scene.num_tris_padded > pallas_bf.TRI_SLAB:
-        return None    # fused kernel holds all tris in one VMEM block
-    return partial(pallas_bf.intersect_closest_nee, scene,
-                   tmin=cfg.t_min, tmax=cfg.t_max)
+    return "pallas" if on_gpu else "bruteforce"
 
 
 def _with_primitives(scene: SceneArrays, cfg: RenderConfig, closest_fn,
@@ -83,8 +49,7 @@ def _with_primitives(scene: SceneArrays, cfg: RenderConfig, closest_fn,
     (``sutil/Scene.cpp:1368-1450`` + ``cuda/geometry.cu``/``sphere.cu``)
     become a dense post-pass over the few primitives, combined with the
     triangle hit by min-t. Primitive ids are offset past the padded
-    triangle range so consumers can tell them apart; when a primitive
-    wins, any landing-slab prediction is reset to SLAB_UNKNOWN."""
+    triangle range so consumers can tell them apart."""
     from functools import wraps
     from .primitives import (combine_hits, intersect_primitives,
                              occluded_primitives)
@@ -92,23 +57,10 @@ def _with_primitives(scene: SceneArrays, cfg: RenderConfig, closest_fn,
     offset = scene.num_tris_padded
 
     @wraps(closest_fn)
-    def closest2(o, d, pred=None, want_slab=False):
-        if want_slab:
-            hit, slab = closest_fn(o, d, pred=pred, want_slab=True)
-        else:
-            hit = (closest_fn(o, d, pred=pred, want_slab=False)
-                   if getattr(closest_fn, "supports_pred", False)
-                   else closest_fn(o, d))
+    def closest2(o, d):
         ph = intersect_primitives(prims, o, d, tmin=cfg.t_min,
                                   tmax=cfg.t_max, index_offset=offset)
-        if want_slab:
-            import jax.numpy as jnp
-            prim_wins = ph.t < hit.t
-            slab = jnp.where(prim_wins, SLAB_UNKNOWN, slab)
-            return combine_hits(hit, ph), slab
-        return combine_hits(hit, ph)
-
-    closest2.supports_pred = getattr(closest_fn, "supports_pred", False)
+        return combine_hits(closest_fn(o, d), ph)
 
     def occluded2(o, d, tmax):
         return (occluded_fn(o, d, tmax)
@@ -135,23 +87,10 @@ def _with_curves(scene: SceneArrays, cfg: RenderConfig, closest_fn,
         scene.prims.count if scene.prims is not None else 0)
 
     @wraps(closest_fn)
-    def closest2(o, d, pred=None, want_slab=False):
-        if want_slab:
-            hit, slab = closest_fn(o, d, pred=pred, want_slab=True)
-        else:
-            hit = (closest_fn(o, d, pred=pred, want_slab=False)
-                   if getattr(closest_fn, "supports_pred", False)
-                   else closest_fn(o, d))
+    def closest2(o, d):
         ch = intersect_curves(curves, o, d, tmin=cfg.t_min,
                               tmax=cfg.t_max, index_offset=offset)
-        if want_slab:
-            import jax.numpy as jnp
-            curve_wins = ch.t < hit.t
-            slab = jnp.where(curve_wins, SLAB_UNKNOWN, slab)
-            return combine_hits(hit, ch), slab
-        return combine_hits(hit, ch)
-
-    closest2.supports_pred = getattr(closest_fn, "supports_pred", False)
+        return combine_hits(closest_fn(o, d), ch)
 
     def occluded2(o, d, tmax):
         return (occluded_fn(o, d, tmax)
@@ -164,9 +103,9 @@ def get_intersectors(scene: SceneArrays, cfg: RenderConfig,
                      want_uv: bool = True):
     """Returns (closest_fn(o, d) -> Hit, occluded_fn(o, d, tmax) -> bool).
 
-    ``want_uv=False`` lets the Pallas backend skip the barycentric output
-    reduction (the OBJ path tracer shades flat normals only; the whitted
-    pipeline needs u/v for vertex-attribute interpolation)."""
+    ``want_uv=False`` lets the Pallas backend skip the barycentric carry
+    (the OBJ path tracer shades flat normals only; the whitted pipeline
+    needs u/v for vertex-attribute interpolation)."""
     if scene.curves is not None and scene.curves.count:
         base = scene.replace(curves=None)
         closest_fn, occluded_fn = get_intersectors(base, cfg,
@@ -180,31 +119,13 @@ def get_intersectors(scene: SceneArrays, cfg: RenderConfig,
     backend = _resolve(scene, cfg)
 
     if backend == "pallas":
-        import os
-        from . import pallas_bf
-        closest = partial(pallas_bf.intersect_closest, scene,
-                          tmin=cfg.t_min, tmax=cfg.t_max,
-                          want_uv=want_uv)
-
-        def closest_fn(o, d, pred=None, want_slab=False):
-            return closest(o, d, pred=pred, want_slab=want_slab)
-
-        # Landing-slab prediction pays only where the clustered lean
-        # path runs (multi-slab scenes, t/id carry): that path both
-        # consumes the prediction (sort key) and produces the next one
-        # (winner slab from the packed row id, no gather). TPT_PRED=0
-        # to ablate.
-        closest_fn.supports_pred = (
-            not want_uv
-            and pallas_bf._pad_to(scene.tri_v0.shape[0],
-                                  pallas_bf.TRI_BLOCK) > pallas_bf.TRI_SLAB
-            and os.environ.get("TPT_LEAN_BIG", "1") == "1"
-            and os.environ.get("TPT_BINNED", "0") not in ("1", "closest")
-            and os.environ.get("TPT_PRED", "1") != "0")
-        occluded = partial(pallas_bf.intersect_occluded, scene,
+        from . import pallas_dense
+        closest = partial(pallas_dense.intersect_closest, scene,
+                          tmin=cfg.t_min, tmax=cfg.t_max, want_uv=want_uv)
+        occluded = partial(pallas_dense.intersect_occluded, scene,
                            tmin=cfg.t_min,
                            quirk_first_hit=cfg.quirks.occlusion_first_hit_only)
-        return closest_fn, occluded
+        return closest, occluded
 
     if backend == "bvh":
         from . import lbvh

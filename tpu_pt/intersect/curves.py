@@ -4,7 +4,7 @@ Catmull-Rom.
 Parity with the reference's curve support (``cuda/GeometryData.h:55-127``
 lists the four round-curve types; ``cuda/curve.h:312-443`` evaluates the
 segment polynomial and its surface normal). OptiX intersects curves with
-hardware/built-in programs; the TPU-native equivalent here is dense and
+hardware/built-in programs; the equivalent here is dense and
 batched:
 
 - Every segment type is converted once to a power-basis polynomial
@@ -31,7 +31,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import pytree
 
 from .. import vec3 as v3
 from ..vec3 import V3, as_v3
@@ -85,7 +85,7 @@ def expand_curve_spec(spec: dict, mat: int) -> list[dict]:
             for s in range(pts.shape[0] - (cps - 1))]
 
 
-@struct.dataclass
+@pytree.dataclass
 class CurveSegments:
     """SoA curve segments in power basis: k0..k3 are [S, 4] (xyz, radius)."""
     k0: jnp.ndarray
@@ -97,7 +97,7 @@ class CurveSegments:
     # refractive curves pass light, matching the occlusion convention of
     # the primitives and the reference (``pathTracerPrograms.cu:672-681``).
     # Empty = all occlude.
-    occludes: tuple = struct.field(pytree_node=False, default=())
+    occludes: tuple = pytree.static_field(default=())
 
     @property
     def count(self) -> int:

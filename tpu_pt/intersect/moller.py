@@ -1,11 +1,11 @@
 """Batched ray-triangle intersection (Möller-Trumbore) in pure jnp.
 
-TPU-native replacement for the reference's hardware BVH traversal
-(``optixTraverse``, ``pathTracerPrograms.cu:600-613``) at small scene sizes:
-a dense all-rays × all-triangles test, chunked so intermediates stay
-VMEM-sized and XLA can pipeline. The Pallas kernel in
-``tpu_pt.intersect.pallas_bf`` is the tuned version of the same algorithm;
-``tpu_pt.intersect.lbvh`` scales it to large meshes.
+The plain replacement for the reference's hardware BVH traversal
+(``optixTraverse``, ``pathTracerPrograms.cu:600-613``) at small scene sizes,
+and the reference the other backends are tested against: a dense
+all-rays × all-triangles test, chunked so intermediates stay bounded. The
+Pallas kernel in ``tpu_pt.intersect.pallas_dense`` is the tuned version of
+the same algorithm; ``tpu_pt.intersect.lbvh`` scales it to large meshes.
 
 Rays and results use the component-SoA ``V3`` layout (``tpu_pt.vec3``);
 the [R, B] ray-block x tri-block intermediates are built from [R, 1] x
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .. import pytree
 
 from ..scene.arrays import SceneArrays, BSDF_REFRACTION
 from ..vec3 import V3
@@ -29,14 +29,10 @@ DET_EPS = 1e-9
 T_FAR = 1e16
 
 
-@struct.dataclass
+@pytree.dataclass
 class Hit:
-    """Closest-hit result. Normal and material id are produced by the
-    intersector itself because post-hoc ``table[tri]`` gathers are
-    pathologically slow on TPU (~1 GB/s effective) — either selected
-    in-sweep, or (small scenes) recovered from the winning tri id by an
-    exact one-hot matmul (``pallas_bf._lean_resolve``). Shading stays
-    gather-free either way."""
+    """Closest-hit result, with the winning triangle's geometric normal
+    and material id resolved by the intersector."""
     t: jnp.ndarray        # [N] f32, T_FAR on miss
     tri: jnp.ndarray      # [N] i32, 0 on miss
     hit: jnp.ndarray      # [N] bool
@@ -44,11 +40,6 @@ class Hit:
     mat: jnp.ndarray      # [N] i32 material id, 0 on miss
     u: jnp.ndarray        # [N] f32 barycentric u at the hit (0 on miss)
     v: jnp.ndarray        # [N] f32 barycentric v at the hit (0 on miss)
-    # Winning instance id (instanced scenes only — the two-level
-    # ``pallas_inst`` sweep; ``tri`` then indexes the UNIQUE mesh's
-    # attribute tables and shading transforms mesh-space attributes by
-    # this instance's matrices). None everywhere else.
-    inst: jnp.ndarray | None = None
 
 
 def _fit_tri_block(requested: int, n_tri: int) -> int:
@@ -116,8 +107,8 @@ def _closest_chunk(o: V3, d: V3, scene: SceneArrays, tmin, tmax,
         blk_t = jnp.min(t, axis=-1)
         blk_arg = jnp.argmin(t, axis=-1).astype(jnp.int32)
         blk_i = blk_arg + s
-        # Select the argmin triangle's normal/material with a mask matmul
-        # (MXU) instead of a slow per-ray gather.
+        # Select the argmin triangle's normal/material with a mask
+        # matmul.
         lane = jax.lax.broadcasted_iota(jnp.int32, (r, tri_block), 1)
         mask_b = lane == blk_arg[:, None]
         mask = mask_b.astype(jnp.float32)
@@ -127,7 +118,8 @@ def _closest_chunk(o: V3, d: V3, scene: SceneArrays, tmin, tmax,
             [sl(scene.tri_normal),
              sl(scene.mat_id).astype(jnp.float32)[:, None]], axis=1)
         # HIGHEST precision: with a 0/1 mask the matmul is then an exact
-        # select (default MXU precision truncates the values to bf16).
+        # select (a default-precision f32 matmul may round the values to
+        # bf16 or TF32).
         blk_nm = jnp.matmul(mask, nm,
                             precision=jax.lax.Precision.HIGHEST)  # [R, 4]
         better = blk_t < best_t

@@ -4,7 +4,7 @@ Parity with the reference's custom-primitive intersection programs
 (``cuda/geometry.cu:38-144``, ``cuda/sphere.cu:37-97``) and the
 ``GeometryData`` tagged union (``cuda/GeometryData.h:55-127``): a small
 array of analytic primitives intersected wavefront-wide in a few dense
-ops — the TPU analog of OptiX custom-primitive AABBs + intersection
+ops — the wavefront analog of OptiX custom-primitive AABBs + intersection
 programs. Combined with triangle hits by min-t (see ``combine_hits``).
 """
 
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import pytree
 
 from .. import vec3 as v3
 from ..vec3 import V3, as_v3
@@ -24,7 +24,7 @@ PRIM_PARALLELOGRAM = 1
 PRIM_SPHERE_SHELL = 2
 
 
-@struct.dataclass
+@pytree.dataclass
 class Primitives:
     """SoA analytic primitives.
 
@@ -37,14 +37,14 @@ class Primitives:
       PARALLELOGRAM:  anchor xyz, v1 xyz, v2 xyz (plane extent basis)
       SPHERE_SHELL:   center xyz, radius1 (inner), radius2 (outer)
     """
-    kind: tuple = struct.field(pytree_node=False)  # per-prim PRIM_* ints
+    kind: tuple = pytree.static_field()  # per-prim PRIM_* ints
     params: jnp.ndarray = None   # [P, 12] f32
     mat: jnp.ndarray = None      # [P] i32
     # Per-prim "can occlude an NEE shadow ray" flags (static): refractive
     # primitives pass light, matching the reference's occlusion program
     # skipping refractive hits (``pathTracerPrograms.cu:672-681``).
     # Empty = all occlude.
-    occludes: tuple = struct.field(pytree_node=False, default=())
+    occludes: tuple = pytree.static_field(default=())
 
     @property
     def count(self) -> int:

@@ -1,6 +1,6 @@
 """Wavefront path-trace core.
 
-This is the TPU-native inversion of the reference's OptiX megakernel
+This is the wavefront inversion of the reference's OptiX megakernel
 (``__raygen__rg`` / ``__miss__ms`` / ``__closesthit__diffuse__ch``,
 ``pathTracerPrograms.cu:707-1031``): instead of one divergent thread per
 pixel, the whole frame is a fixed-shape ray-SoA wavefront in the
@@ -25,8 +25,8 @@ RNG decouples sample values from execution order):
 - ``pixelq`` (default): same persistent wavefront, but items are whole
   pixels (a lane runs its pixel's spp samples back to back) and finished
   pixels flush into lane-local slot buffers drained by a single
-  end-of-frame scatter — removing the per-round scatter-adds that
-  dominate ``regen`` (measured 46% of its frame time on v5e).
+  end-of-frame scatter — removing the per-round scatter-adds of
+  ``regen``.
 
 RNG is counter-based (``tpu_pt.rng``), so results are reproducible and
 independent of sharding — the documented divergence from the reference's
@@ -41,13 +41,13 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from . import pytree
 
 from . import bsdf, rng
 from . import vec3 as v3
 from .vec3 import V3
 from .config import RenderConfig
-from .intersect import get_fused_closest_nee, get_intersectors
+from .intersect import get_intersectors
 from .scene.arrays import BSDF_METALLIC, BSDF_REFRACTION, SceneArrays
 
 # DoneReason parity (``pathTracer.h:11-17``).
@@ -61,12 +61,12 @@ DONE_REASON_NAMES = ("MISS", "MAX_DEPTH", "RUSSIAN_ROULETTE", "LIGHT_HIT",
                      "NOT_DONE")
 
 # Dead wavefront lanes and ineligible shadow rays are "parked": origin far
-# outside any scene so every AABB slab test fails and the clustered
-# kernels spend nothing on them (brute-force kernels sweep regardless).
+# outside any scene, so every BVH box test fails and traversal spends
+# nothing on them (dense sweeps test them regardless).
 PARK_COORD = 3.0e7
 
 
-@struct.dataclass
+@pytree.dataclass
 class CameraArrays:
     """Device-side camera: eye + (non-orthonormal) UVW frame
     (``PathTraceParams`` camera fields, ``pathTracer.h:96-99``)."""
@@ -84,7 +84,7 @@ class CameraArrays:
                    w=jnp.asarray(w, jnp.float32))
 
 
-@struct.dataclass
+@pytree.dataclass
 class RenderStats:
     """Per-frame telemetry (SURVEY.md §5.5): ray counts for Mrays/s and the
     path-termination histogram (the reference's DoneReason debug channel)."""
@@ -133,19 +133,15 @@ def _material_table(scene: SceneArrays) -> jnp.ndarray:
 
 
 def _lookup_materials(scene: SceneArrays, mat_ids: jnp.ndarray):
-    """Per-lane material properties via one-hot matmul (MXU) — XLA's
-    gather is ~1 GB/s on TPU, so ``table[ids]`` is avoided on hot paths."""
+    """Per-lane material properties via one one-hot matmul over the
+    stacked [M, 12] table (``table[ids]`` as a row select)."""
     table = _material_table(scene)
     m = table.shape[0]
     onehot = (mat_ids[:, None] == jnp.arange(m, dtype=mat_ids.dtype)[None, :]
               ).astype(jnp.float32)
     # HIGHEST precision: one-hot x table is then an exact row select
-    # (default MXU precision would truncate material values to bf16).
-    # NOTE: the single-pass Dekker-split variant that speeds up
-    # pallas_bf._lean_resolve measured SLOWER here (176.9 vs 178.6
-    # Mrays/s) and — despite verifying exact in isolation — produced
-    # diverging renders inside the full fused frame graph; do not
-    # repeat without a bitwise A/B on whole frames.
+    # (a default-precision f32 matmul may round the values to bf16 or
+    # TF32).
     props = jnp.matmul(onehot, table,
                        precision=jax.lax.Precision.HIGHEST)     # [N, 12]
     return dict(diffuse=V3(props[:, 0], props[:, 1], props[:, 2]),
@@ -237,9 +233,9 @@ def _nee(scene: SceneArrays, cfg: RenderConfig, occluded_fn, shade, hit_mask,
                 & (n_dl > 0.0) & (ln_dl > 0.0))
 
     # Occlusion rays only matter on eligible lanes; park the rest far
-    # outside the scene (a zero direction would pass every AABB slab test
-    # in the clustered path — tnear = -inf — and generate cull work; a
-    # parked ray fails all of them).
+    # outside the scene (a zero direction would pass every BVH box test —
+    # tnear = -inf — and generate traversal work; a parked ray fails all
+    # of them).
     park = V3(jnp.full(eligible.shape, PARK_COORD),
               jnp.full(eligible.shape, PARK_COORD),
               jnp.full(eligible.shape, PARK_COORD))
@@ -260,16 +256,12 @@ def _nee(scene: SceneArrays, cfg: RenderConfig, occluded_fn, shade, hit_mask,
 
 def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
             pixel_ids, sample_idx, frame_idx, origin: V3, direction: V3,
-            atten: V3, depth, fused_fn=None, pred=None):
+            atten: V3, depth):
     """One trace + shade round for the whole wavefront.
 
     ``sample_idx`` and ``depth`` may be scalars (scan scheduler) or per-lane
     arrays (regen scheduler); everything broadcasts. Returns the per-lane
     transition: radiance contribution, next ray, termination + DoneReason.
-
-    With ``fused_fn`` (Pallas backend + NEE on), the closest hit and the
-    NEE shadow ray run as one kernel pass — counter RNG lets the light
-    sample be drawn before the trace.
     """
     depth_u = jnp.asarray(depth, jnp.uint32)
     sa = jnp.uint32(rng.STREAM_BOUNCE_A) + 2 * depth_u
@@ -277,18 +269,7 @@ def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
     z1, z2, z3, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sa)
     lz1, lz2, z_rr, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sb)
 
-    hit_slab = None
-    if fused_fn is not None and cfg.use_direct_lighting:
-        hit, occ_pre = fused_fn(origin, direction, lz1, lz2)
-        occluded_fn = lambda p, d, tm: occ_pre     # noqa: E731
-    elif pred is not None:
-        # Prediction-ordered scheduling (clustered lean path): feed the
-        # predicted landing slab into the ray sort key, read back the
-        # winner's slab for the next prediction.
-        hit, hit_slab = closest_fn(origin, direction, pred=pred,
-                                   want_slab=True)
-    else:
-        hit = closest_fn(origin, direction)
+    hit = closest_fn(origin, direction)
     hit_mask = hit.hit
 
     shade = _shade_hit(scene, cfg, origin, direction, hit, (z1, z2, z3))
@@ -332,12 +313,11 @@ def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
     atten_cont = v3.safe_divide(atten_new, p_rr)
     return dict(contrib=contrib, atten_new=atten_new, atten_cont=atten_cont,
                 new_origin=shade["new_origin"], new_dir=shade["new_dir"],
-                done=done, reason=reason, shadow_mask=shadow_mask,
-                hit_slab=hit_slab)
+                done=done, reason=reason, shadow_mask=shadow_mask)
 
 
 def _render_scan(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
-                 closest_fn, occluded_fn, fused_fn=None):
+                 closest_fn, occluded_fn):
     """Reference-shaped scheduler: scan over samples x scan over bounces."""
     pixel_ids = jnp.asarray(pixel_start, jnp.uint32) + jnp.arange(
         n, dtype=jnp.uint32)
@@ -354,7 +334,7 @@ def _render_scan(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
              n_rays, n_shadow) = carry
             step = _bounce(scene, cfg, closest_fn, occluded_fn, pixel_ids,
                            sample_idx, frame_idx, origin, direction, atten,
-                           depth, fused_fn=fused_fn)
+                           depth)
             alive_f = jnp.where(alive, 1.0, 0.0)
             result = result + step["contrib"] * alive_f
             reason = jnp.where(alive & step["done"], step["reason"], reason)
@@ -398,7 +378,7 @@ def _render_scan(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
 
 
 def _render_regen(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
-                  closest_fn, occluded_fn, fused_fn=None):
+                  closest_fn, occluded_fn):
     """Persistent-wavefront scheduler with a global work queue.
 
     The (pixel, sample) grid is a queue of ``n_pixels * spp`` path items;
@@ -412,8 +392,8 @@ def _render_regen(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
     615-617``) as the occupancy mechanism.
 
     The wavefront width is capped at ``cfg.lanes`` (per-lane bookkeeping —
-    scatter-adds especially — scales superlinearly past VMEM-friendly
-    sizes); larger frames stream their items through the fixed wavefront.
+    scatter-adds especially — grows with the width); larger frames stream
+    their items through the fixed wavefront.
 
     Radiance sums per pixel contain exactly the same terms as the scan
     scheduler (counter RNG), but same-pixel samples may interleave their
@@ -467,9 +447,7 @@ def _render_regen(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
         # Run up to ``bounces_per_round`` trace steps with the round's
         # contributions accumulated in registers; lanes whose path dies
         # mid-round idle until the round ends. One scatter per round
-        # instead of per bounce — the scatter-adds are the scheduler's
-        # main fixed cost (~half the round on v5e), so amortizing them
-        # beats the ~30%-per-step idle loss at k=2.
+        # instead of per bounce.
         alive = active
         origin, direction = s["origin"], s["direction"]
         atten, depth = s["atten"], s["depth"]
@@ -478,8 +456,7 @@ def _render_regen(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
         n_rays, n_shadow = s["n_rays"], s["n_shadow"]
         for _ in range(k_steps):
             step = _bounce(scene, cfg, closest_fn, occluded_fn, pix, sample,
-                           frame_idx, origin, direction, atten, depth,
-                           fused_fn=fused_fn)
+                           frame_idx, origin, direction, atten, depth)
             alive_f = jnp.where(alive, 1.0, 0.0)
             pending = pending + step["contrib"] * alive_f
             done = step["done"]
@@ -498,8 +475,7 @@ def _render_regen(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
             depth = jnp.where(cont, depth + 1, depth)
             alive = cont
 
-        # Three component scatter-adds (measured faster than one [N, 3]
-        # scatter on TPU).
+        # Three component scatter-adds.
         result = V3(s["result"].x.at[j].add(pending.x),
                     s["result"].y.at[j].add(pending.y),
                     s["result"].z.at[j].add(pending.z))
@@ -541,19 +517,17 @@ def _render_regen(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
 
 
 def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
-                   closest_fn, occluded_fn, fused_fn=None, bounce_fn=None):
+                   closest_fn, occluded_fn, bounce_fn=None):
     """Persistent wavefront with a pixel-granular work queue and lane-local
     flush slots — the scatter-free scheduler.
 
     ``bounce_fn`` swaps the per-round transition (default: the path
     tracer's ``_bounce``) so other integrators — the whitted pipeline —
     reuse this scheduler. It receives ``(pix, sample, origin, direction,
-    atten, depth)`` and returns ``_bounce``'s step dict; prediction and
-    kernel fusion stay path-tracer-only.
+    atten, depth)`` and returns ``_bounce``'s step dict.
 
-    The per-round scatter-adds of ``_render_regen`` dominate its frame time
-    (measured 46% on v5e: XLA TPU scatter costs ~6 ns per update and the
-    wavefront flushes every lane every bounce). Here a work item is a run
+    ``_render_regen`` scatter-adds every lane's radiance every round. Here
+    a work item is a run
     of ``cfg.samples_per_item`` consecutive samples of one pixel: a lane
     traces them back to back, accumulating radiance in loop-carried
     registers, and on the item's last sample writes (pixel, rgb) into one
@@ -585,26 +559,16 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
     n_chunks = (cfg.spp + chunk - 1) // chunk
     total_items = n * n_chunks
     total = jnp.uint32(total_items)
-    # Cap the wavefront so each lane averages >= ~8 items: with fewer,
+    # Cap the wavefront so each lane averages several items: with fewer,
     # the queue stops regenerating and the frame tail is the unluckiest
-    # ITEM's full trace count at near-empty occupancy. Measured on the
-    # 100k-tri scene (512^2 x 4 spp = 1 item/lane at the 262144 cap):
-    # 2.97 -> 3.74 Mrays/s at items/8 lanes (the sweet spot; 16k matches,
-    # 8k over-serializes). Wider also loses: items/4 (524288 lanes) on
-    # the Cornell headline drops 170.5 -> 107 Mrays/s — the doubled slot
-    # buffers and drain sort swamp the halved round count
-    # (TPT_ITEMS_PER_LANE to reproduce). The 4096 floor keeps tiny
-    # renders wide enough to fill the kernel grid.
-    # Default items/lane is integrator- AND scene-size-specific: the
-    # path tracer's measured optimum is 8 (sweep in the ladder notes).
-    # The whitted step's per-round cost on SMALL scenes is dominated by
-    # width-proportional dense passes (texture matmul, attribute
-    # selects, shading), so a narrower wavefront with more rounds wins
-    # — measured 44.6 -> 52.8 Mrays/s at 16 on the 512^2 pbr frame
-    # (8 = 44.6, 4 = 32.9). On CLUSTERED-path scenes the per-round
-    # fixed costs are the candidate-schedule builds and ray sorts,
-    # which scale with ROUNDS, so the preference inverts: pbr_big
-    # measured 16/8/4/2 = 6.58/6.89/7.00/6.66 — 4 is the optimum.
+    # ITEM's full trace count at near-empty occupancy; wider, the slot
+    # buffers and the drain sort grow. The 4096 floor keeps tiny renders
+    # wide enough to fill the device. Items per lane default per
+    # integrator and scene size: the whitted step's per-round cost on
+    # small scenes is mostly width-proportional dense passes (texture
+    # and attribute selects, shading), which favours a narrower
+    # wavefront (TPT_ITEMS_PER_LANE overrides; the defaults are not yet
+    # measured on the GPU).
     big_scene = scene is not None and scene.tri_v0.shape[0] > 8192
     ipl_default = ((4 if big_scene else 16) if bounce_fn is not None
                    else 8)
@@ -615,26 +579,15 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
     spp = jnp.uint32(cfg.spp)
     # Width LADDER: the while_loop's width is static, so once the queue
     # drains, the tail (the unluckiest still-running items) pays
-    # full-width cost per round — every dense per-round term (candidate
-    # builds, schedule builds, shade selects) runs over mostly-retired
-    # lanes. TPT_LADDER lists width divisors: when the live-lane count
-    # falls to the next stage's width, the loop exits, survivors compact
-    # into a narrower loop (fresh flush buffers; the finished buffers
-    # join the final drain), and tracing continues. Radiance is
-    # item-keyed (counter RNG), so images are bitwise identical at any
-    # ladder. Each stage retraces the bounce step at its width — more
-    # compile, same numerics. Default OFF: it buys frames whose
-    # per-round cost is dominated by width-proportional dense passes
-    # (the 100k-tri clustered frame: 4.83 -> 5.05 Mrays/s at "1,8";
-    # tools/bench_big.py turns it on) but costs the Cornell headline
-    # ~4% (189.5 -> 181.9 — the lean-kernel tail is too short to repay
-    # the stage-boundary compaction and the extra stage's drain rows).
-    # Ladder default is integrator-specific too: whitted's short paths
-    # leave a drained-queue tail whose full-width rounds are pure dense
-    # cost (measured 53.1 -> 55.1 Mrays/s at "1,8" on the 512^2 pbr
-    # frame); the path tracer's Cornell tail is too short to repay the
-    # boundary compaction (189.5 -> 181.9, ladder notes), so it stays
-    # off there.
+    # full-width cost per round. TPT_LADDER lists width divisors: when
+    # the live-lane count falls to the next stage's width, the loop
+    # exits, survivors compact into a narrower loop (fresh flush
+    # buffers; the finished buffers join the final drain), and tracing
+    # continues. Radiance is item-keyed (counter RNG), so images are
+    # bitwise identical at any ladder. Each stage retraces the bounce
+    # step at its width — more compile, same numerics. On by default for
+    # the whitted step, whose short paths leave a long drained-queue
+    # tail; off for the path tracer.
     ladder_default = "1,8" if bounce_fn is not None else "1"
     divisors = [int(x) for x in os.environ.get(
         "TPT_LADDER", ladder_default).split(",") if x.strip()]
@@ -655,16 +608,13 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
         # have claimed go to lanes that still have slots, so no sample
         # is lost at ANY margin, and the counter RNG keys radiance by
         # (pixel, sample), so the image is bitwise identical too).
-        # Drain updates scale with n_slots, so margin is pure overhead:
-        # measured (1024^2 x 16 spp Cornell) margin 6 = 127.8, 2 =
-        # 132.3, 0 = 133.9 Mrays/s; 2 buys insurance for
-        # item-cost-skewed scenes at ~1%. Ladder stages after the first
-        # can only flush the previous stage's <= prev_w in-flight items
-        # (a lane goes idle only once the queue is empty, so stage
-        # boundaries happen with every item claimed), so their buffers
-        # size to prev_w / w + slack instead of total_items / w — the
-        # final drain sort stays ~items-sized instead of gaining
-        # millions of filler rows per stage.
+        # Drain updates scale with n_slots, so margin is pure overhead
+        # bought as insurance for item-cost-skewed scenes. Ladder stages
+        # after the first can only flush the previous stage's <= prev_w
+        # in-flight items (a lane goes idle only once the queue is
+        # empty, so stage boundaries happen with every item claimed), so
+        # their buffers size to prev_w / w + slack instead of
+        # total_items / w.
         margin = int(os.environ.get("TPT_SLOT_MARGIN", 2))
         if prev_w is None:
             per_lane = (total_items + w - 1) // w
@@ -696,17 +646,6 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
     j0, sample0 = item_pixel(g0)
     origin0, dir0 = item_rays(j0, sample0)
 
-    # Landing-slab prediction (clustered lean scenes only): each lane
-    # carries the predicted chained slab of its CURRENT ray's closest
-    # hit — bounce rays inherit the parent's landing slab, camera
-    # re-samples of the same pixel the pixel's last camera landing slab
-    # — and the intersector sorts tiles by it (see _coherence_key).
-    # Ordering-only: images are bitwise identical with TPT_PRED=0.
-    use_pred = (bounce_fn is None and fused_fn is None
-                and getattr(closest_fn, "supports_pred", False))
-    from .intersect import SLAB_UNKNOWN
-    SLAB_NONE = jnp.int32(SLAB_UNKNOWN)
-
     empty_ids0, uf_empty0, filler_next = stage_buffers(n_lanes, total_items)
     state0 = dict(
         g=g0, sample=sample0,
@@ -725,9 +664,6 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
         hist=jnp.zeros((NUM_DONE_REASONS,), jnp.float32),
         iters=jnp.zeros((), jnp.float32),
     )
-    if use_pred:
-        state0["pred"] = jnp.full((n_lanes,), SLAB_NONE)
-        state0["cam_slab"] = jnp.full((n_lanes,), SLAB_NONE)
 
     def body(s):
         active = s["active"]
@@ -743,9 +679,7 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
         else:
             step = _bounce(scene, cfg, closest_fn, occluded_fn, pix,
                            sample + offset, frame_idx, s["origin"],
-                           s["direction"], s["atten"], s["depth"],
-                           fused_fn=fused_fn,
-                           pred=s["pred"] if use_pred else None)
+                           s["direction"], s["atten"], s["depth"])
         active_f = jnp.where(active, 1.0, 0.0)
         pending = s["pending"] + step["contrib"] * active_f
 
@@ -794,8 +728,7 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
         o_new, d_new = item_rays(jnp.where(respawn, j_next, 0),
                                  jnp.where(respawn, sample_next, 0))
         # Retired lanes park their rays (see PARK_COORD): without this
-        # they would re-trace their stale last ray every remaining round,
-        # generating real sweep work in the clustered kernels.
+        # they would re-trace their stale last ray every remaining round.
         park = V3.full((n_lanes,), (PARK_COORD,) * 3)
         away = V3.full((n_lanes,), (0.5773503,) * 3)
         origin = v3.where(cont, step["new_origin"],
@@ -823,28 +756,12 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
                 jnp.sum(jnp.where(active & step["shadow_mask"], 1.0, 0.0))),
             hist=hist, iters=s["iters"] + 1.0,
         )
-        if use_pred:
-            hs = step["hit_slab"]
-            # Remember the pixel's camera-ray landing slab while the
-            # lane holds this pixel; it predicts the next sample's
-            # camera ray. (New-pixel claims start unknown — the real
-            # predictor there would be cross-lane history, which costs
-            # a gather; camera rays are ~8% of candidate entries.)
-            cam_slab = jnp.where(
-                active & (s["depth"] == 0) & (hs != SLAB_NONE),
-                hs, s["cam_slab"])
-            out_s["cam_slab"] = cam_slab
-            out_s["pred"] = jnp.where(
-                cont, hs,
-                jnp.where(more_samples, cam_slab,
-                          jnp.where(has_new, SLAB_NONE, s["pred"])))
         return out_s
 
     # Per-lane state that survives a ladder compaction (flush buffers do
     # not: each stage drains its own).
     carry_keys = ("g", "sample", "origin", "direction", "atten", "depth",
-                  "pending", "active") + (("pred", "cam_slab")
-                                          if use_pred else ())
+                  "pending", "active")
     drain_ids = []
     drain_rgb = []
     out = state0
@@ -894,9 +811,8 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, sample_offset,
     # slots' filler ids all sit past total_items — so one ascending
     # multi-operand sort by id puts item k's radiance at row k, and the
     # chunk fold is a [n_chunks, n] reshape-sum (item g covers pixel
-    # g % n). No scatter at all: XLA lowers the scatter this replaces
-    # to three sorts + three 14 ms permute fusions; doing the one sort
-    # ourselves is ~6x cheaper (measured 52 -> 8 ms per frame).
+    # g % n). No scatter at all: one multi-operand sort does the work
+    # of the per-item scatter-add it replaces.
     drain_rgb += [(out["slot_rgb"].x.reshape(-1), out["pending"].x),
                   (out["slot_rgb"].y.reshape(-1), out["pending"].y),
                   (out["slot_rgb"].z.reshape(-1), out["pending"].z)]
@@ -933,11 +849,10 @@ def render_wavefront(scene: SceneArrays, cam: CameraArrays,
     """
     closest_fn, occluded_fn = get_intersectors(scene, cfg,
                                                want_uv=False)
-    fused_fn = get_fused_closest_nee(scene, cfg)
     impl = {"scan": _render_scan, "regen": _render_regen,
             "pixelq": _render_pixelq}[cfg.scheduler]
     return impl(scene, cam, cfg, pixel_start, n_pixels, frame_idx,
-                sample_offset, closest_fn, occluded_fn, fused_fn)
+                sample_offset, closest_fn, occluded_fn)
 
 
 @partial(jax.jit, static_argnames=("cfg",), donate_argnames=("accum",))

@@ -2,7 +2,7 @@
 
 The reference threads a stateful 24-bit LCG through the ray payload
 (``cuda/random.h:49-67``) seeded with ``tea<4>(pixel, frame)``
-(``random.h:31-46``). A serial per-ray RNG is hostile to a TPU wavefront
+(``random.h:31-46``). A serial per-ray RNG is hostile to a wavefront
 design (state would have to ride the scan carry and draws would serialize),
 so we replace it with a *counter-based* generator: every uniform draw is a
 pure hash of ``(pixel, sample, frame, stream)``. Renders become bitwise

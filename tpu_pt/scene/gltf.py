@@ -8,31 +8,16 @@ metallic-roughness materials (base color / metallic / roughness / emissive
 factors, baseColorTexture, alpha modes, double-sided), KHR_lights_punctual
 point lights, and cameras.
 
-Geometry contracts (the reference keeps a two-level GAS+IAS — per-mesh
-GAS instanced under ``buildInstanceAccel``, ``Scene.cpp:1134``):
-
-- ``instancing="flatten"`` (the default under the guardrail): instances
-  are flattened — triangles are pre-transformed into world space at
-  load time and one table/LBVH covers the whole scene. That trades
-  instancing memory for a traversal with no transform indirection,
-  which suits the TPU's dense wavefront. The shared-mesh half of the
-  IAS IS kept: meshes decode once and each instance pays only its
-  transform (``_decoded_mesh`` cache), so a 500-instance forest loads
-  in O(mesh + instances) time (``assets/forest.gltf``, ~0.5M world
-  tris).
-- ``instancing="instanced"``: the TRUE two-level shape
-  (``intersect.pallas_inst``) — unique meshes stay VMEM-resident in
-  mesh space, instances are the outer sweep level with in-kernel
-  inverse-3x4 ray transforms. Memory scales O(unique mesh +
-  instances): this is how assets PAST the flatten guardrail render at
-  all, and the forest loads ~19x faster (0.7 s vs 13.3 s measured).
-- ``instancing="auto"``: the measured-faster contract per scene —
-  instanced when the asset is eligible AND either the flatten would
-  blow the ``max_flat_tris`` guardrail (rescue) or the instancing
-  amplification is high (>= ``TPT_INST_AUTO_AMP`` = 8x at >=
-  ``TPT_INST_AUTO_MIN`` = 32k flattened tris, where the instanced
-  sweep measured 5.7x the flatten); low-amplification scenes keep the
-  flatten's transform-free traversal.
+Geometry (the reference keeps a two-level GAS+IAS — per-mesh GAS
+instanced under ``buildInstanceAccel``, ``Scene.cpp:1134``): instances
+are flattened — triangles are pre-transformed into world space at load
+time and one table/LBVH covers the whole scene, so traversal has no
+transform indirection. The shared-mesh half of the IAS is kept: meshes
+decode once and each instance pays only its transform (``_decoded_mesh``
+cache), so a 500-instance forest loads in O(mesh + instances) time
+(``assets/forest.gltf``, ~0.5M world tris). Memory scales O(instances x
+mesh), so the flattened triangle count is bounded by what the device's
+memory can hold (``max_flat_tris``).
 """
 
 from __future__ import annotations
@@ -43,7 +28,7 @@ import os
 import struct as pystruct
 
 import numpy as np
-from flax import struct
+from .. import pytree
 import jax.numpy as jnp
 
 from .. import mathlib as ml
@@ -67,7 +52,7 @@ ALPHA_MASK = 1
 ALPHA_BLEND = 2
 
 
-@struct.dataclass
+@pytree.dataclass
 class AlphaOccluders:
     """Shadow-ray transmission split (``__anyhit__occlusion`` parity,
     ``cuda/whitted.cu:113-138``).
@@ -76,8 +61,8 @@ class AlphaOccluders:
     pass fractional light (MASK below cutoff passes entirely; otherwise
     the shadow attenuation multiplies by ``1 - tex_alpha``); everything
     else — untextured materials included, the anyhit gates on
-    ``base_color_tex`` — terminates the ray. The TPU-shaped equivalent
-    splits the triangle set once at scene build:
+    ``base_color_tex`` — terminates the ray. Here the triangle set is
+    split once at scene build:
 
     - ``occ_geom``: the scene WITHOUT the alpha-class triangles (plus
       any analytic prims/curves) — the boolean occlusion sweep, a hit
@@ -98,16 +83,10 @@ class AlphaOccluders:
     occ_geom: SceneArrays
     geom: SceneArrays
     uv: jnp.ndarray
-    max_hits: int = struct.field(pytree_node=False, default=4)
-    # Instanced-contract twins (``WhittedScene.inst`` scenes): subset
-    # instance tables sharing the scene's transforms but addressing the
-    # opaque / alpha subset cluster ranges (``_subset_instance_table``).
-    # None on flattened scenes.
-    occ_inst: object | None = None
-    inst: object | None = None
+    max_hits: int = pytree.static_field(default=4)
 
 
-@struct.dataclass
+@pytree.dataclass
 class WhittedScene:
     """World-space scene for the whitted/direct-lighting pipeline.
 
@@ -163,48 +142,27 @@ class WhittedScene:
     # samples through them in cuda/whitted.cu). Static — the sampler loop
     # in ``whitted._sample_textures`` is unrolled per texture anyway.
     # 10497=REPEAT (default), 33071=CLAMP_TO_EDGE, 33648=MIRRORED_REPEAT.
-    tex_wrap: tuple = struct.field(pytree_node=False, default=())
+    tex_wrap: tuple = pytree.static_field(default=())
     # Static capability flags (not traced): let the renderer skip whole
     # sampling passes for scenes that lack the channel. Conservative
     # default True — masked math stays correct either way.
-    has_normal_maps: bool = struct.field(pytree_node=False, default=True)
-    has_mr_tex: bool = struct.field(pytree_node=False, default=True)
-    has_emissive_tex: bool = struct.field(pytree_node=False, default=True)
+    has_normal_maps: bool = pytree.static_field(default=True)
+    has_mr_tex: bool = pytree.static_field(default=True)
+    has_emissive_tex: bool = pytree.static_field(default=True)
     # First perspective camera declared by the asset, as
     # (eye, lookat, up, fov_y_degrees) host tuples — the reference
     # loads glTF cameras into its Camera the same way
     # (``sutil/Scene.cpp:166-191``; divergence: the reference leaves
     # lookat at the Camera default, here it is eye + the node's world
     # -Z view direction). Empty tuple = none declared.
-    camera: tuple = struct.field(pytree_node=False, default=())
+    camera: tuple = pytree.static_field(default=())
     # Fractional shadow-occlusion split (AlphaOccluders) for scenes
     # with textured alpha-mask/blend materials; None = every occluder
     # is boolean and the plain occlusion sweep serves shadows.
     alpha_occ: AlphaOccluders | None = None
-    # Instanced scenes (``load_gltf(instancing=...)``): the
-    # ``pallas_inst.InstanceTable`` IAS analog. When set, ``geom`` and
-    # every per-triangle table hold the UNIQUE meshes in MESH space;
-    # the instanced intersectors return world hits + a winning instance
-    # id, and shading transforms mesh-space vertex attributes by the
-    # instance's matrices (``whitted._make_whitted_step``). None =
-    # world-space flattened scene (the default path).
-    inst: object | None = None
 
     def world_bounds(self):
-        """(lo, hi) world-space scene AABB as numpy [3] arrays.
-
-        Flattened geometry spans it directly; instanced scenes (whose
-        ``geom`` is MESH-space) aggregate the instances' world boxes —
-        CONSERVATIVE for rotated instances (an axis-aligned mesh AABB
-        pushed through a rotation inflates up to sqrt(3)), so default
-        cameras frame instanced scenes slightly wider than the same
-        scene flattened. Every camera/extent consumer must use this
-        instead of reading ``geom.tri_v0`` bounds (the CLI default
-        camera once framed the unique mesh at its local origin for
-        rescued scenes)."""
-        if self.inst is not None:
-            bx = np.asarray(self.inst.boxes)[:self.inst.count]
-            return bx[:, 0:3].min(axis=0), bx[:, 3:6].max(axis=0)
+        """(lo, hi) world-space scene AABB as numpy [3] arrays."""
         v = np.asarray(self.geom.tri_v0)[np.asarray(self.geom.tri_valid)]
         return v.min(axis=0), v.max(axis=0)
 
@@ -332,34 +290,6 @@ class _Gltf:
         return np.ascontiguousarray(out)
 
 
-def _subset_instance_table(instances, mesh_ranges, sel, tv):
-    """Instance table over a TRIANGLE SUBSET of the unique meshes.
-
-    The fractional-shadow split (AlphaOccluders) divides the unique
-    geometry into opaque and alpha-class rows; each subset renders
-    through its own ``pallas_inst`` table sharing the scene's instance
-    transforms but addressing the subset's cluster ranges (subset
-    triangles keep their relative order, so ranges are exclusive-cumsum
-    slices). Meshes whose subset is empty collapse to a far-point
-    mesh AABB — their world boxes fail every slab test and the kernel
-    loops zero clusters."""
-    from ..intersect import pallas_inst
-    sel = np.asarray(sel, bool)
-    cum = np.concatenate([[0], np.cumsum(sel)])
-    sub_ranges, sub_aabbs = [], []
-    for lo, hi in mesh_ranges:
-        slo, shi = int(cum[lo]), int(cum[hi])
-        sub_ranges.append((slo, shi))
-        if shi > slo:
-            pts = tv[lo:hi][sel[lo:hi]].reshape(-1, 3)
-            sub_aabbs.append((pts.min(axis=0), pts.max(axis=0)))
-        else:
-            far = np.full(3, 3e37, np.float32)
-            sub_aabbs.append((far, far))
-    return pallas_inst.build_instance_table(sub_ranges, sub_aabbs,
-                                            instances)
-
-
 def _gpu_instance_matrices(g, ext: dict, parent: np.ndarray):
     """``EXT_mesh_gpu_instancing`` -> per-instance world matrices.
 
@@ -463,88 +393,45 @@ def _decode_image(g: _Gltf, img: dict) -> np.ndarray:
     return rgba
 
 
-# Bytes of table rows created per FLATTENED triangle (measured on
-# big_mesh.obj, 99,968 padded rows: SceneArrays v0/e1/e2/normal/valid/
-# mat_id 53 B + host staging copy 53 B + vtx_attr 64 B + tri_tangent
-# 12 B + packed single-slab 64 B + clustered pack & boxes ~70 B +
-# occ/cluster index 8 B). Used by the instancing guardrail to state the
-# cost of the flatten in the error message.
-_BYTES_PER_FLAT_TRI = 324
+# Device bytes per flattened triangle: SceneArrays v0/e1/e2/normal,
+# valid and mat_id (53 B), vtx_attr (64 B), tri_tangent (12 B), the NEE
+# occluder index (4 B) and the LBVH (2T - 1 nodes of 24 f32 and three
+# i32 each, ~216 B).
+_BYTES_PER_FLAT_TRI = 349
 
-# Default flattened-triangle bound: ~1.3 GB of triangle tables. The
-# deliberate design divergence from the reference's IAS (instances
-# flattened to world space, module docstring) makes memory scale
-# O(instances x mesh); past this bound that trade stops being sane and
-# the loader refuses instead of detonating. Override with the
-# ``max_flat_tris`` argument or ``TPT_MAX_FLAT_TRIS``.
-_MAX_FLAT_TRIS_DEFAULT = 4_000_000
+# Share of the device's memory the flattened triangle tables may take;
+# the rest holds the wavefront state and the compiled frame's buffers.
+_FLAT_MEMORY_SHARE = 0.5
 
 
-def _instancing_eligible(doc, inst_records, decoded_mesh):
-    """(ok, reason) — can this asset keep its instances (two-level
-    ``pallas_inst`` traversal) instead of flattening?
+def _device_bytes_limit() -> int:
+    """Memory this process's first device lets it allocate (a device
+    of another process reports no stats). A device that reports no
+    limit (the CPU) counts the host's physical memory."""
+    import jax
+    stats = jax.local_devices()[0].memory_stats() or {}
+    if "bytes_limit" in stats:
+        return int(stats["bytes_limit"])
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
-    Ineligible: extras prims/curves (analytic geometry has no
-    mesh-space table), singular instance transforms, or unique-mesh/
-    instance counts past the VMEM-resident bounds. Textured alpha
-    materials ARE eligible — the fractional shadow split builds subset
-    instance tables (``_subset_instance_table``)."""
-    from ..intersect import pallas_inst
-    if doc.get("extras", {}).get("tpu_pt_primitives"):
-        return False, "asset declares extras analytic primitives"
-    if doc.get("extras", {}).get("tpu_pt_curves"):
-        return False, "asset declares extras curves"
-    if len(inst_records) > pallas_inst.INST_MAX_INST:
-        return False, (f"{len(inst_records)} instances > "
-                       f"TPT_INST_MAX={pallas_inst.INST_MAX_INST}")
-    from ..intersect.pallas_bf import CLUSTER
-    rows = 0
-    for mesh_idx in {m for m, _ in inst_records}:
-        t = sum(p[1].shape[0] for p in decoded_mesh(mesh_idx))
-        rows += -(-max(t, 1) // CLUSTER) * CLUSTER
-    if rows > pallas_inst.INST_MAX_ROWS:
-        return False, (f"unique meshes pack to {rows} rows > "
-                       f"TPT_INST_ROWS={pallas_inst.INST_MAX_ROWS}")
-    for _, xf in inst_records:
-        if abs(np.linalg.det(np.asarray(xf)[:3, :3])) < 1e-12:
-            return False, "singular instance transform"
-    return True, None
+
+def default_max_flat_tris() -> int:
+    """Flattened-triangle bound derived from the device's memory."""
+    return int(_device_bytes_limit() * _FLAT_MEMORY_SHARE
+               // _BYTES_PER_FLAT_TRI)
 
 
 def load_gltf(path: str, default_lights: bool = True,
-              max_flat_tris: int | None = None,
-              instancing: str | None = None) -> WhittedScene:
+              max_flat_tris: int | None = None) -> WhittedScene:
     """Load a .gltf/.glb file into a WhittedScene.
 
-    ``instancing`` picks the geometry contract (default env
-    ``TPT_INSTANCING`` or "auto"):
-
-    - ``"flatten"``: instances pre-transform to world space — see the
-      module docstring. ``max_flat_tris`` bounds the flattened triangle
-      count (default ``TPT_MAX_FLAT_TRIS`` env or 4M, ~1.3 GB of
-      tables); a scene whose instancing expands past the bound raises
-      ValueError naming the amplification instead of silently
-      exhausting memory.
-    - ``"instanced"``: keep the reference's two-level shape
-      (``sutil/Scene.cpp:1134-1213`` GAS+IAS): unique meshes stay in
-      mesh space, per-instance transforms ride an
-      ``intersect.pallas_inst.InstanceTable``, and memory scales
-      O(unique mesh + instances). Requires an eligible asset (triangle
-      meshes only — no extras prims/curves, no textured-alpha
-      materials, unique mesh rows within the VMEM bound).
-    - ``"auto"``: the measured-faster contract per scene (module
-      docstring): instanced for eligible assets past the guardrail
-      (rescue) OR at high instancing amplification
-      (``TPT_INST_AUTO_AMP``/``TPT_INST_AUTO_MIN``); flatten
-      otherwise."""
+    Instances flatten to world space (module docstring).
+    ``max_flat_tris`` bounds the flattened triangle count (default
+    :func:`default_max_flat_tris`, from the device's memory); a scene
+    whose instancing expands past the bound raises ValueError naming the
+    amplification instead of exhausting memory."""
     if max_flat_tris is None:
-        max_flat_tris = int(os.environ.get("TPT_MAX_FLAT_TRIS",
-                                           _MAX_FLAT_TRIS_DEFAULT))
-    if instancing is None:
-        instancing = os.environ.get("TPT_INSTANCING", "auto")
-    if instancing not in ("auto", "flatten", "instanced"):
-        raise ValueError(f"instancing must be auto|flatten|instanced,"
-                         f" got {instancing!r}")
+        max_flat_tris = default_max_flat_tris()
     g = _Gltf(path)
     doc = g.doc
     mesh_uses: dict = {}      # mesh idx -> instance count (guardrail)
@@ -555,7 +442,6 @@ def load_gltf(path: str, default_lights: bool = True,
     tri_mat = []       # [T]
 
     flat_count = [0]
-    inst_note = {"reason": None}   # why auto-instancing could not rescue
 
     def _flat_guard(extra: int):
         """Enforce the instancing bound BEFORE transforming the next
@@ -573,16 +459,10 @@ def load_gltf(path: str, default_lights: bool = True,
             f"(~{flat_count[0] * _BYTES_PER_FLAT_TRI / 1e9:.1f} GB of "
             f"tables; {n_inst} mesh instances over {len(mesh_uses)} "
             f"meshes so far, most-instanced mesh used {worst}x) — past "
-            f"the {max_flat_tris:,}-triangle bound. tpu_pt flattens "
-            f"instances by default (scene/gltf.py module docstring), so "
-            f"memory scales O(instances x mesh size). Raise the bound "
-            f"via load_gltf(max_flat_tris=...) / TPT_MAX_FLAT_TRIS if "
-            f"the memory cost is acceptable, or keep the instances with "
-            f"load_gltf(instancing='instanced') (the pallas_inst IAS "
-            f"analog, memory O(unique mesh + instances))"
-            + (f" — auto-instancing could not rescue this asset: "
-               f"{inst_note['reason']}." if inst_note["reason"]
-               else "."))
+            f"the {max_flat_tris:,}-triangle bound derived from the "
+            f"device's memory. tpu_pt flattens instances (scene/gltf.py "
+            f"module docstring), so memory scales O(instances x mesh "
+            f"size); load_gltf(max_flat_tris=...) sets another bound.")
 
     # Per-mesh decode cache: instanced meshes (the forest case — one
     # tree node-referenced hundreds of times) decode their accessors
@@ -616,16 +496,9 @@ def load_gltf(path: str, default_lights: bool = True,
         mesh_cache[mesh_idx] = prims_out
         return prims_out
 
-    def emit_mesh(mesh_idx: int, xform: np.ndarray, guard: bool = True):
+    def emit_mesh(mesh_idx: int, xform: np.ndarray):
         for pos, idx, nrm, uv, mat in _decoded_mesh(mesh_idx):
-            if guard:
-                _flat_guard(idx.shape[0])
-            else:
-                # Instanced emission: nothing is flattened — the bound
-                # does not apply (the eligibility check already bounded
-                # the UNIQUE rows), but flat_count still tracks the
-                # running triangle offset for mesh_ranges.
-                flat_count[0] += idx.shape[0]
+            _flat_guard(idx.shape[0])
             world_pos = ml.transform_points(xform, pos)
             tv = world_pos[idx]                      # [t, 3, 3]
             if nrm is None:
@@ -683,59 +556,8 @@ def load_gltf(path: str, default_lights: bool = True,
     for r in roots:
         walk(r, ml.mat4_identity())
 
-    # --- geometry contract: flatten vs instanced (IAS analog) -------------
-    use_inst = False
-    inst_reject = None
-    if instancing != "flatten" and inst_records:
-        use_inst, inst_reject = _instancing_eligible(
-            doc, inst_records, _decoded_mesh)
-        inst_note["reason"] = inst_reject
-        if instancing == "auto" and use_inst:
-            # Auto picks the measured-faster contract: past the
-            # guardrail the instanced table is the only way to load at
-            # all, and BELOW it high-amplification scenes still win big
-            # through the instanced sweep (forest: 12.47 vs 2.18
-            # Mrays/s, 19x faster load — PERF.json whitted_forest*).
-            # Low-amplification scenes keep the flatten's transform-
-            # free traversal. Thresholds are env-tunable.
-            flat_total = sum(
-                sum(p[1].shape[0] for p in _decoded_mesh(m))
-                for m, _ in inst_records)
-            unique_total = sum(
-                sum(p[1].shape[0] for p in _decoded_mesh(m))
-                for m in {mi for mi, _ in inst_records})
-            amp = flat_total / max(unique_total, 1)
-            auto_amp = float(os.environ.get("TPT_INST_AUTO_AMP", "8"))
-            auto_min = int(os.environ.get("TPT_INST_AUTO_MIN", "32768"))
-            use_inst = (flat_total > max_flat_tris
-                        or (amp >= auto_amp and flat_total >= auto_min))
-        if instancing == "instanced" and not use_inst:
-            raise ValueError(
-                f"{os.path.basename(path)}: instancing requested but "
-                f"the asset is ineligible: {inst_reject}")
-
-    inst_table = None
-    if use_inst:
-        # Emit each USED mesh once, identity transform (mesh space);
-        # instances become table rows.
-        from ..intersect import pallas_inst
-        mesh_slots: dict = {}
-        mesh_ranges, mesh_aabbs = [], []
-        for mesh_idx, _ in inst_records:
-            if mesh_idx in mesh_slots:
-                continue
-            lo = flat_count[0]
-            emit_mesh(mesh_idx, ml.mat4_identity(), guard=False)
-            mesh_slots[mesh_idx] = len(mesh_ranges)
-            mesh_ranges.append((lo, flat_count[0]))
-            pts = np.concatenate([p[0] for p in _decoded_mesh(mesh_idx)])
-            mesh_aabbs.append((pts.min(axis=0), pts.max(axis=0)))
-        inst_table = pallas_inst.build_instance_table(
-            mesh_ranges, mesh_aabbs,
-            [(mesh_slots[m], xf) for m, xf in inst_records])
-    else:
-        for mesh_idx, xform in inst_records:
-            emit_mesh(mesh_idx, xform)
+    for mesh_idx, xform in inst_records:
+        emit_mesh(mesh_idx, xform)
 
     assert tris_v, f"no triangle geometry in {path}"
     tv = np.concatenate(tris_v)
@@ -858,14 +680,7 @@ def load_gltf(path: str, default_lights: bool = True,
     # (glTF convention), focal distance scaled to the scene extent so
     # trackball orbits behave.
     cam_tuple = ()
-    # World-space scene extent: flattened verts ARE world; instanced
-    # geometry is mesh-space, so the extent comes from the instances'
-    # world AABBs instead.
-    if use_inst:
-        _bx = np.asarray(inst_table.boxes)[:inst_table.count]
-        ext_lo, ext_hi = _bx[:, 0:3].min(axis=0), _bx[:, 3:6].max(axis=0)
-    else:
-        ext_lo, ext_hi = verts.min(axis=0), verts.max(axis=0)
+    ext_lo, ext_hi = verts.min(axis=0), verts.max(axis=0)
 
     gcams = doc.get("cameras", [])
     for cam_idx, xform in cameras:
@@ -900,7 +715,7 @@ def load_gltf(path: str, default_lights: bool = True,
         lights_color = [np.array([0.8, 0.8, 0.8], np.float32),
                         np.array([0.4, 0.4, 0.4], np.float32)]
 
-    if lights_pos and not use_inst:
+    if lights_pos:
         # The occluder subset computed inside build_scene_arrays used
         # only the (path-tracer) area-light quad as segment endpoints;
         # whitted shadow segments end at the POINT lights, which can sit
@@ -927,7 +742,6 @@ def load_gltf(path: str, default_lights: bool = True,
                       & (tables["tex_id"] >= 0))
     tri_alpha = alpha_mat_mask[np.clip(tmat, 0, n_m - 1)]
     occ_geom = alpha_geom = alpha_uv = None
-    occ_inst_tbl = alpha_inst_tbl = None
     if tri_alpha.any():
         def _sub_geom(sel):
             sverts = tv[sel].reshape(-1, 3)
@@ -937,7 +751,7 @@ def load_gltf(path: str, default_lights: bool = True,
                                       light=default_cornell_light(),
                                       return_host=True)
         occ_geom, occ_host = _sub_geom(~tri_alpha)
-        if lights_pos and not use_inst:
+        if lights_pos:
             from .arrays import _host_light, nee_occluder_index
             o_refr = occ_host["mat_bsdf"][occ_host["mat_id"]] \
                 == BSDF_REFRACTION
@@ -953,18 +767,6 @@ def load_gltf(path: str, default_lights: bool = True,
         n_a = int(tri_alpha.sum())
         alpha_uv = np.zeros((alpha_geom.num_tris_padded, 6), np.float32)
         alpha_uv[:n_a] = tuv[tri_alpha].reshape(n_a, 6)
-        if use_inst:
-            # Instanced contract: the split happens at the UNIQUE-mesh
-            # level (tv/tmat ARE the unique meshes here), and the two
-            # subsets get their own instance tables SHARING the scene's
-            # transforms but carrying subset cluster ranges + subset
-            # mesh AABBs (empty subsets collapse to far-point boxes so
-            # they never enter a candidate list).
-            _insts = [(mesh_slots[m], xf) for m, xf in inst_records]
-            occ_inst_tbl = _subset_instance_table(
-                _insts, mesh_ranges, ~tri_alpha, tv)
-            alpha_inst_tbl = _subset_instance_table(
-                _insts, mesh_ranges, tri_alpha, tv)
 
     # Analytic primitives from the document's application-specific
     # ``extras`` (valid glTF 2.0: extras carry arbitrary JSON). The
@@ -1065,19 +867,15 @@ def load_gltf(path: str, default_lights: bool = True,
         has_mr_tex=bool((tables["mrtex_id"] >= 0).any()),
         has_emissive_tex=bool((tables["etex_id"] >= 0).any()),
         camera=cam_tuple,
-        inst=inst_table,
         alpha_occ=None if occ_geom is None else AlphaOccluders(
             occ_geom=occ_geom, geom=alpha_geom,
             uv=jnp.asarray(alpha_uv),
-            occ_inst=occ_inst_tbl, inst=alpha_inst_tbl,
-            # Each alpha triangle can be hit at most once per segment
-            # — PER INSTANCE on instanced scenes — so n_alpha (x
-            # instances) marches are exact; the knob caps the unrolled
+            # Each alpha triangle can be hit at most once per segment,
+            # so n_alpha marches are exact; the knob caps the unrolled
             # march for alpha-heavy scenes (foliage) — hits past the
             # cap go unaccounted (their <= 1 factors are skipped), a
             # small bias toward brighter shadows.
-            max_hits=min(int(tri_alpha.sum())
-                         * (len(inst_records) if use_inst else 1),
+            max_hits=min(int(tri_alpha.sum()),
                          int(os.environ.get("TPT_ALPHA_OCC_K", "8")
                              or 8))),
     )

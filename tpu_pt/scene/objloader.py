@@ -261,33 +261,18 @@ def detect_area_light(mesh: ObjMesh) -> AreaLight | None:
 
 def load_scene(path: str, light: AreaLight | None = None,
                auto_light: bool = True,
-               build_bvh: bool = True,
-               split_large: bool = False) -> SceneArrays:
+               build_bvh: bool = True) -> SceneArrays:
     """OBJ (or glTF/GLB) file -> device-ready SceneArrays (LBVH attached).
 
     glTF scenes route through :mod:`tpu_pt.scene.gltf`; the path tracer
-    consumes their geometry + PBR-derived materials directly.
-
-    ``split_large`` bisects world-spanning triangles at load time on
-    scenes big enough for the clustered intersection path (see
-    :mod:`tpu_pt.scene.refine`); small scenes are never touched. Off by
-    default: measured on the 100k-tri benchmark scene it is slightly
-    net-negative (0.99 -> 0.94 Mrays/s at 256^2) — the per-tile interval
-    candidate lists already absorb the few world-spanning clusters, so
-    the extra rows outweigh the culling gain. Kept for scenes whose
-    large-triangle fraction is higher."""
+    consumes their geometry + PBR-derived materials directly."""
     if path.lower().endswith(".json"):
         from .scenejson import load_scene_json
         return load_scene_json(path, light=light, auto_light=auto_light,
                                build_bvh=build_bvh)
     if path.lower().endswith((".gltf", ".glb")):
         from .gltf import load_gltf
-        # The path tracer consumes world-space flattened geometry only:
-        # force the flatten contract so an instanced/auto-rescued load
-        # can never hand it mesh-space unique geometry with the
-        # transforms dropped (the guardrail error stays loud here; the
-        # instanced contract is the WHITTED pipeline's, ws.inst).
-        ws = load_gltf(path, instancing="flatten")
+        ws = load_gltf(path)
         scene = ws.geom
         if light is not None:
             scene = scene.replace(light=light)
@@ -314,11 +299,6 @@ def load_scene(path: str, light: AreaLight | None = None,
     if light is None:
         light = default_cornell_light()
     verts, idx, mids = mesh.vertices, mesh.indices, mesh.mat_indices
-    if split_large:
-        from ..intersect.pallas_bf import TRI_SLAB
-        if np.asarray(idx).reshape(-1, 3).shape[0] > TRI_SLAB:
-            from .refine import split_large_tris
-            verts, idx, mids = split_large_tris(verts, idx, mids)
     scene, host = build_scene_arrays(
         verts, idx, mids,
         [m.as_dict() for m in mesh.materials], light=light,

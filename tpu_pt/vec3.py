@@ -1,11 +1,9 @@
-"""Component-SoA 3-vectors: the TPU-native hot-path layout.
+"""Component-SoA 3-vectors: the hot-path layout of the wavefront.
 
-A ``[N, 3]`` array on TPU tiles its minor axis onto 128 vector lanes, so
-every dot/normalize/cross pays a 3/128 lane-occupancy tax and every
-reduction over the size-3 axis becomes a padded cross-lane reduce —
-profiling showed these fusions costing ~4x the intersection kernels.
-``V3`` stores x, y, z as three independent ``[N]`` arrays instead: all
-vector algebra becomes full-width elementwise VPU ops with no reductions.
+``V3`` stores x, y, z as three independent ``[N]`` arrays instead of one
+``[N, 3]`` array: every dot/normalize/cross is then a full-width
+elementwise op over contiguous rows, with no reduction over a size-3
+minor axis and no strided access.
 
 ``V3`` is a NamedTuple, hence automatically a pytree (scan carries,
 shard_map, donation all work). Geometry vectors AND RGB colors use it on

@@ -3,7 +3,7 @@
 Parity target: the reference's GLFW/OpenGL interactive loop
 (``PathTracerMain.cpp:648-746`` + ``sutil::GLDisplay``): progressive
 accumulation between input events, live keyboard toggles, FPS/stats
-overlays. TPU hosts are headless, so the presenter draws the frame with
+overlays. Accelerator hosts are often headless, so the presenter draws the frame with
 24-bit ANSI half-block characters (two image rows per text row) instead of
 a textured GL quad; everything else — the key bindings, the
 reset-accumulation-on-toggle behavior, the frame statistics — matches the
@@ -186,10 +186,8 @@ def run_viewer(scene_path: str, args) -> int:
         from tpu_pt.camera import Camera
         from tpu_pt.scene.gltf import load_gltf
         from tpu_pt.whitted import render_whitted_frame
-        scene = load_gltf(scene_path,
-                          instancing=getattr(args, "instancing", None))
-        # World bounds for the trackball (instanced scenes' geom is
-        # mesh-space; world_bounds aggregates the instance boxes).
+        scene = load_gltf(scene_path)
+        # World bounds for the trackball.
         lo, hi = scene.world_bounds()
         c = 0.5 * (lo + hi)
         ext = float(np.linalg.norm(hi - lo))

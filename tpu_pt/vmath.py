@@ -1,10 +1,10 @@
 """Vector math on stacked ``[..., 3]`` float32 arrays.
 
-TPU-native replacement for the reference's CUDA header math
+The replacement for the reference's CUDA header math
 (``sutil/vec_math.h``, ``PathTracer_Optix/pathTracerPrograms.cu:54-85`` ONB,
 ``cuda/helpers.h:107-137`` refract). Everything here is shape-polymorphic,
-jit-safe, and branch-free so it vectorizes over whole ray wavefronts on the
-VPU instead of per-thread scalar code.
+jit-safe, and branch-free so it vectorizes over whole ray wavefronts
+instead of per-thread scalar code.
 """
 
 from __future__ import annotations
